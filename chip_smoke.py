@@ -8,11 +8,19 @@ Phases (the first failure ends the run with a non-zero exit code):
 
   1. device  - the card's name and power limit (nvidia-smi); no CUDA, no run.
   2. build   - nvcc builds the kernels from `multimodalemotionrecognition_torch/
-               kernels/csrc/` for sm_90a.
+               kernels/csrc/` for sm_90a, one process per source.
   3. kernels - each kernel against its plain PyTorch version at the serving
-               path's shapes (K1: B=8, T=149, E=768, 12 heads; K3: layers
-               L1..L6 at B=8), float32 and bfloat16, with TF32 off; max
-               error, and kernel vs plain times from CUDA events.
+               path's shapes, with TF32 off: K1 (B=8, T=149, E=768, 12 heads)
+               and K3 (layers L1..L6 at B=8) in float32 and bfloat16; K4, the
+               whole fusion block (B=8 and B=1, T=8, Ta=149, 512/768 -> 128),
+               for the flagship spec and for (attn pool, gated head, prior),
+               float and int8 matrices, float32 and bfloat16 tower outputs,
+               one and several samples per block; K5, the attention core,
+               with and without biases.  Max error, kernel and plain times
+               from CUDA events, the library call's time where one PyTorch
+               call computes the same function (K3: conv1d + gelu), and each
+               kernel's bound: the larger of its bytes over 3.35 TB/s and its
+               operations over the peak rate of their type.
   4. serve   - the flagship model (xattn + WavLM-base 12x768 + ResNet18,
                concat head, mean pooling, d_model 128) with random weights
                from a seeded generator, saved as a reference-format .pt and
@@ -20,10 +28,18 @@ Phases (the first failure ends the run with a non-zero exit code):
                int16 audio).  Requests of 1, 3 and 8 clips, a blank-video
                request and an `EmotionPredictor` call, checked against the
                same weights on the plain (modular) path on the card, with
-               the kernels' launch counts; then b1 latency and b8 clips/s.
+               the kernels' launch counts (12 K1 + 6 K3 per forward).
+  5. fused   - the same checkpoint through `TorchModelRunner(fused=True)`,
+               `(quantize_int8=True)` and both, bf16 and f32: fused against
+               modular, int8 + fused against int8, int8 against float; 1 K4,
+               12 K1 and 6 K3 launches per fused forward.
+  6. blocks  - K5's and K4's public entries on the served model's own
+               tokens, against the modular fusion modules they stand for, with
+               the modules' device and host times beside K4's.
+  7. timing  - b1 latency and b8 clips/s of all ten runners, taking turns.
 
-The line before the last is the JSON kernel report; the last line is
-{"ok": true, "device": {...}}.
+The line before the last two is the JSON kernel report; then the card's
+line; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -37,12 +53,20 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.nn import functional as F
 
 SEED = 0
 REPO = Path(__file__).resolve().parent
 K1_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # abs, after the LayerNorm
 K3_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (0.0, 2e-2)}  # abs, x max|ref|
 PROBS_TOL = {"float32": 1e-3, "bfloat16": 2e-2}  # abs, kernel path vs plain path
+FUSION_TOL = 1e-4  # abs, K4 logits and K5 embeddings (float32 math, other sum order)
+FUSED_PROBS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # abs, K4 (float32 math) vs modules
+INT8_TOL = 0.05  # abs on probabilities, int8 weights vs float weights, same argmax
+# Published H100 SXM peaks: HBM3 bytes/s; dense FLOP/s by operand type (float32
+# outside the tensor cores).
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
 def card_line() -> str:
@@ -53,10 +77,18 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
+def _plug(ms_wanted: float) -> None:
+    """Keep the card busy for about `ms_wanted`, so that launches queued
+    behind it wait on the card and not on the host."""
+    if not hasattr(_plug, "operand"):
+        _plug.operand = torch.randn(4096, 4096, device="cuda")
+        _timed(lambda: torch.matmul(_plug.operand, _plug.operand), 3)  # cuBLAS set-up
+        _plug.ms = _timed(lambda: torch.matmul(_plug.operand, _plug.operand), 10)
+    for _ in range(max(1, round(ms_wanted / _plug.ms))):
+        torch.matmul(_plug.operand, _plug.operand)
+
+
+def _timed(fn, iters: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -67,15 +99,44 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def host_ms(fn, iters: int = 10) -> float:
-    """Median wall time of fn(), which ends in a device->host copy."""
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of fn() in ms: CUDA events around `iters` calls queued
+    behind a plug twice as long as the host needs to queue them (read from
+    the warm-up calls), so the host's pace of launching does not show."""
     fn()
-    times = []
-    for _ in range(iters):
-        t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(warmup):
         fn()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(times))
+    host = (time.perf_counter() - t0) * 1e3 / warmup
+    torch.cuda.synchronize()
+    _plug(min(1000.0, max(20.0, 2.0 * iters * host)))
+    return _timed(fn, iters)
+
+
+def enqueue_ms(fn, iters: int = 20) -> float:
+    """Host time of one fn() call in ms, not waiting for the card: what a
+    request's host thread pays to launch it."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return host
+
+
+def bound(flops: float, nbytes: float, dtype) -> dict:
+    """The least time the card could take: each input read once, each output
+    written once, against the operations at the peak rate of their type."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def check_k1(dev, gen):
@@ -105,11 +166,15 @@ def check_k1(dev, gen):
         ms = cuda_ms(lambda: wavlm_attention_sublayer(*args, num_heads=h, seq_len=t))
         plain_ms = cuda_ms(lambda: wavlm_attention_sublayer_plain(*args, num_heads=h, seq_len=t))
         name = str(dtype).replace("torch.", "")
+        # q.k and p.v per head, then the out-projection; operands once + out.
+        limit = bound(4 * b * t * t * e + 2 * b * t * e * e, nbytes(*args, got), dtype)
         print(f"K1 {name}: B={b} T={t} E={e} H={h} max_abs_err={err:.3e} "
-              f"(tol {K1_TOL[dtype]}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+              f"(tol {K1_TOL[dtype]}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+              f"bound {limit['bound_ms']:.5f} ms ({limit['bound_by']})")
         if not err <= K1_TOL[dtype]:
             raise AssertionError(f"K1 {name} disagrees with its plain version: {err}")
-        report[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        report[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **limit,
+                        "library_ms": None}
     return report
 
 
@@ -126,7 +191,8 @@ def check_k3(dev, gen):
     report = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
-        total = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+        total = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+        flops = moved = 0
         t_in = t_log
         for i in range(1, len(cfg.conv_dim)):
             k, s, cin, cout = cfg.conv_kernel[i], cfg.conv_stride[i], cfg.conv_dim[i - 1], cfg.conv_dim[i]
@@ -146,48 +212,223 @@ def check_k3(dev, gen):
             err = (got - want).abs().max().item()
             atol, rtol = K3_TOL[dtype]
             tol = max(atol, rtol * want.abs().max().item())
-            ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+            # The one library call for the same function: conv1d + gelu (NCW).
+            x_ncw = y.view(b, rows * s, cin)[:, :t_in].transpose(1, 2).contiguous()
+            w_oik = w.view(k, cin, cout).permute(2, 1, 0).contiguous()
+
+            def library():
+                return F.gelu(F.conv1d(x_ncw, w_oik, stride=s))
+
+            ms, plain_ms, library_ms = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
+            flops += 2 * b * t_out * k * cin * cout
+            moved += (b * t_in * cin + k * cin * cout + b * t_out * cout) * y.element_size()
             print(f"K3 {name} L{i}: B={b} t_in={t_in} t_out={t_out} k={k} s={s} "
-                  f"max_abs_err={err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+                  f"max_abs_err={err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                  f"conv1d+gelu {library_ms:.4f} ms")
             if not err <= tol:
                 raise AssertionError(f"K3 {name} L{i} disagrees with its plain version: {err}")
             total["max_abs_err"] = max(total["max_abs_err"], err)
             total["ms"] += ms
             total["plain_ms"] += plain_ms
+            total["library_ms"] += library_ms
             t_in = t_out
-        print(f"K3 {name} L1-L6: kernel {total['ms']:.4f} ms plain {total['plain_ms']:.4f} ms")
+        total.update(bound(flops, moved, dtype))
+        print(f"K3 {name} L1-L6: kernel {total['ms']:.4f} ms plain {total['plain_ms']:.4f} ms "
+              f"conv1d+gelu {total['library_ms']:.4f} ms bound {total['bound_ms']:.5f} ms "
+              f"({total['bound_by']})")
         report[name] = total
     return report
 
 
-def serve(dev, card):
+class _Tower(torch.nn.Module):
+    """Stands in for a tower in the K4 check: the block only reads its width."""
+
+    def __init__(self, width: int):
+        super().__init__()
+        self.embedding_dim = self.sequence_dim = width
+
+
+def _fusion_block(gen, dev, int8: bool, **options):
+    """A full-width fusion block with random parameters (biases and norm
+    scales too, so a misplaced operand shows) -> (FusionModel, params, spec)."""
+    from multimodalemotionrecognition_torch.kernels import FusedBlockSpec, extract_block_params
+    from multimodalemotionrecognition_torch.models.factory import init_parameters
+    from multimodalemotionrecognition_torch.models.fusion import FusionModel
+    from multimodalemotionrecognition_torch.runtime.quant import quantize_linears_int8
+
+    model = FusionModel(_Tower(768), _Tower(512), num_classes=8, **options)
+    init_parameters(model, gen)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.ndim < 2:
+                p.add_(torch.randn(p.shape, generator=gen) * 0.1)
+    model = model.to(dev).eval()
+    if int8:
+        quantize_linears_int8(model)
+    spec = FusedBlockSpec(
+        num_heads=4, d_model=128, pooling=options.get("temporal_pooling", "mean"),
+        head=options.get("xattn_head", "concat"),
+        use_prior=options.get("xattn_use_emotion_prior", False), num_classes=8,
+    )
+    return model, extract_block_params(model.state_dict(), spec, device=dev), spec
+
+
+def check_k4(dev, gen):
+    from multimodalemotionrecognition_torch.kernels import fused_block, fused_block_plain
+
+    t, ta, dv, ds = 8, 149, 512, 768
+    variants = {
+        "flagship": {},
+        "attn_gated_prior": dict(temporal_pooling="attn", xattn_head="gated",
+                                 xattn_use_emotion_prior=True),
+    }
+    report, worst = {}, 0.0
+    for variant, options in variants.items():
+        for int8 in (False, True):
+            _, params, spec = _fusion_block(gen, dev, int8, **options)
+            for dtype in (torch.float32, torch.bfloat16):
+                for b, per_block in ((8, 1), (8, 8), (8, 3), (1, 1)):
+                    v_feat = torch.randn(b, t, dv, generator=gen).abs().to(dev, dtype)
+                    a_seq = torch.randn(b, ta, ds, generator=gen).to(dev, dtype)
+                    got = fused_block(v_feat, a_seq, params, spec, samples_per_block=per_block)
+                    want = fused_block_plain(v_feat, a_seq, params, spec)
+                    torch.cuda.synchronize()
+                    err = (got - want).abs().max().item()
+                    worst = max(worst, err)
+                    name = (f"{variant} {'int8' if int8 else 'float'} "
+                            f"{str(dtype).replace('torch.', '')} B={b} samples/block={per_block}")
+                    line = f"K4 {name}: max_abs_err={err:.3e} (tol {FUSION_TOL})"
+                    if got.shape != (b, 8) or not err <= FUSION_TOL:
+                        raise AssertionError(f"K4 {name} disagrees with its plain version: {err}")
+                    if per_block in (1, 8):
+                        ms = cuda_ms(lambda: fused_block(v_feat, a_seq, params, spec,
+                                                         samples_per_block=per_block))
+                        plain_ms = cuda_ms(lambda: fused_block_plain(v_feat, a_seq, params, spec))
+                        line += f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
+                        if (variant, int8, dtype, b, per_block) == (
+                                "flagship", False, torch.bfloat16, 8, 1):
+                            d, c, hid = 128, 8, 256
+                            flops = 2 * b * (t * dv * d + ta * ds * d + ta * d * d  # input proj
+                                             + 4 * t * d * d + 4 * ta * d * d  # q, k, v, out x 2
+                                             + 4 * t * ta * d  # scores and contexts x 2
+                                             + 2 * d * hid + hid * c)  # head
+                            moved = nbytes(v_feat, a_seq, got, *params.matrices.values(),
+                                           *params.vectors.values())
+                            report = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                      **bound(flops, moved, torch.float32), "library_ms": None,
+                                      "host_enqueue_ms": enqueue_ms(
+                                          lambda: fused_block(v_feat, a_seq, params, spec)),
+                                      "plain_host_enqueue_ms": enqueue_ms(
+                                          lambda: fused_block_plain(v_feat, a_seq, params, spec))}
+                            line += (f" bound {report['bound_ms']:.5f} ms ({report['bound_by']}; "
+                                     f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB); host enqueue "
+                                     f"kernel {report['host_enqueue_ms']:.4f} ms "
+                                     f"plain {report['plain_host_enqueue_ms']:.4f} ms")
+                    print(line)
+    report["max_abs_err_all_variants"] = worst
+    return report
+
+
+def check_k5(dev, gen):
+    from multimodalemotionrecognition_torch.kernels import (
+        fused_bidirectional_xattn,
+        fused_bidirectional_xattn_plain,
+        xattn_params_from_state_dict,
+    )
+
+    t, ta, d, h = 8, 149, 128, 4
+    model, _, _ = _fusion_block(gen, dev, int8=False)
+    params = xattn_params_from_state_dict(model.state_dict(), device=dev)
+    report = {}
+    for b in (8, 1):
+        for with_bias in (False, True):
+            v = torch.randn(b, t, d, generator=gen).to(dev)
+            a = torch.randn(b, ta, d, generator=gen).to(dev)
+            biases = (None, None)
+            if with_bias:
+                biases = ((torch.randn(b, t, ta, generator=gen) * 0.5).to(dev),
+                          (torch.randn(b, ta, t, generator=gen) * 0.5).to(dev))
+
+            def kernel():
+                return fused_bidirectional_xattn(params, v, a, *biases, num_heads=h)
+
+            def plain():
+                return fused_bidirectional_xattn_plain(params, v, a, *biases, num_heads=h)
+
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err = max((g - w).abs().max().item() for g, w in zip(got, want))
+            ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+            name = f"B={b} bias={with_bias}"
+            print(f"K5 {name}: max_abs_err={err:.3e} (tol {FUSION_TOL}) "
+                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+            if got[0].shape != (b, d) or got[1].shape != (b, d) or not err <= FUSION_TOL:
+                raise AssertionError(f"K5 {name} disagrees with its plain version: {err}")
+            report["max_abs_err_all_variants"] = max(report.get("max_abs_err_all_variants", 0.0), err)
+            if (b, with_bias) == (8, False):
+                flops = 2 * b * (4 * t * d * d + 4 * ta * d * d + 4 * t * ta * d)
+                moved = nbytes(v, a, *got, *params)
+                report.update({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                               **bound(flops, moved, torch.float32), "library_ms": None})
+                print(f"K5 {name}: bound {report['bound_ms']:.5f} ms ({report['bound_by']}; "
+                      f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB)")
+    return report
+
+
+def make_checkpoint(path):
+    """The flagship at full width, random weights from the seed -> (config,
+    uint8 video [8,8,3,112,112], int16 audio [8,1,48000])."""
     from multimodalemotionrecognition_torch.config import ModelConfig
+    from multimodalemotionrecognition_torch.models.factory import build_model
+
+    cfg = ModelConfig(fusion="xattn", use_wavlm=True)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(SEED))
+    torch.save({"model": model.state_dict(), "config": cfg.to_checkpoint_dict(),
+                "val_f1": 0.0}, path)
+    rng = np.random.RandomState(SEED)
+    video = rng.randint(0, 256, (8, 8, 3, 112, 112)).astype(np.uint8)
+    audio = (rng.randn(8, 1, 48000) * 3000).clip(-32768, 32767).astype(np.int16)
+    return cfg, video, audio
+
+
+def time_runners(runners, video, audio, card, rounds: int = 4, iters: int = 5):
+    """b1 latency and b8 clips/s of every runner, host wall time of requests
+    that end in a device->host copy.  The runners take turns, in an order
+    that reverses each round, so a drift of the host's pace within the run
+    falls on all alike; the median over all of a runner's samples is kept."""
+    samples = {label: ([], []) for label in runners}
+    for r in range(rounds):
+        for label in (list(runners) if r % 2 == 0 else reversed(list(runners))):
+            runner = runners[label]
+            for n, out in ((1, samples[label][0]), (8, samples[label][1])):
+                runner.predict_probs(video[:n], audio[:n])
+                for _ in range(iters):
+                    t0 = time.perf_counter()
+                    runner.predict_probs(video[:n], audio[:n])
+                    out.append((time.perf_counter() - t0) * 1e3)
+    perf = {}
+    for label, (b1, b8) in samples.items():
+        b1_ms, b8_ms = float(np.median(b1)), float(np.median(b8))
+        perf[label] = {"b1_ms": b1_ms, "b8_clips_per_s": 8e3 / b8_ms}
+        print(f"serve {label}: b1 latency {b1_ms:.2f} ms, b8 {8e3 / b8_ms:.1f} clips/s [{card}]")
+    return perf
+
+
+def serve(dev, card, ckpt, cfg, video, audio):
     from multimodalemotionrecognition_torch.kernels import (
         fused_conv_layer,
         wavlm_attention_sublayer,
     )
-    from multimodalemotionrecognition_torch.models.factory import build_model
     from multimodalemotionrecognition_torch.runtime.runner import TorchModelRunner
     from multimodalemotionrecognition_torch.serving.predictor import EmotionPredictor
 
-    cfg = ModelConfig(fusion="xattn", use_wavlm=True)
-    model = build_model(cfg, generator=torch.Generator().manual_seed(SEED))
-    rng = np.random.RandomState(SEED)
-    video = rng.randint(0, 256, (8, 8, 3, 112, 112)).astype(np.uint8)
-    audio = (rng.randn(8, 1, 48000) * 3000).clip(-32768, 32767).astype(np.int16)
-
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpt = Path(tmp) / "flagship.pt"
-        torch.save({"model": model.state_dict(), "config": cfg.to_checkpoint_dict(),
-                    "val_f1": 0.0}, ckpt)
-        del model
-        runners = {}
-        for dtype in ("bfloat16", "float32"):
-            for fused in ("auto", False):
-                runners[dtype, fused] = TorchModelRunner(
-                    ckpt, device=dev, compute_dtype=dtype, device_normalize=True,
-                    fused_wavlm=fused,
-                )
+    runners = {}
+    for dtype in ("bfloat16", "float32"):
+        for fused in ("auto", False):
+            runners[dtype, fused] = TorchModelRunner(
+                ckpt, device=dev, compute_dtype=dtype, device_normalize=True,
+                fused_wavlm=fused,
+            )
     for r in runners.values():
         r.warmup((1, 4, 8))
     torch.cuda.synchronize()
@@ -238,17 +479,146 @@ def serve(dev, card):
         print(f"serve {dtype}: b8 probs[0] {np.round(out[8][0], 4).tolist()} "
               f"predictor top1 {pred['top1']}")
 
-    perf = {}
+    return launches, {
+        f"{dtype}_{'kernels' if fused == 'auto' else 'plain'}": runner
+        for (dtype, fused), runner in runners.items()
+    }
+
+
+def serve_fused(dev, card, ckpt, cfg, video, audio, modular):
+    """The fused, int8 and int8 + fused runners against `modular`, the
+    float runners of the same checkpoint on the kernel path (K1, K3)."""
+    from multimodalemotionrecognition_torch.kernels import (
+        fused_block,
+        fused_conv_layer,
+        wavlm_attention_sublayer,
+    )
+    from multimodalemotionrecognition_torch.runtime.runner import TorchModelRunner
+
+    counters = {"fused_block": fused_block, "fused_conv_layer": fused_conv_layer,
+                "wavlm_attention_sublayer": wavlm_attention_sublayer}
+    options = {"fused": dict(fused=True), "int8": dict(quantize_int8=True),
+               "int8_fused": dict(quantize_int8=True, fused=True)}
+    runners = {
+        (dtype, name): TorchModelRunner(ckpt, device=dev, compute_dtype=dtype,
+                                        device_normalize=True, **kw)
+        for dtype in ("bfloat16", "float32") for name, kw in options.items()
+    }
+    for r in runners.values():
+        r.warmup((1, 4, 8))
+    torch.cuda.synchronize()
+
+    def requests(runner):
+        out = {n: runner.predict_probs(video[:n], audio[:n]) for n in (1, 3, 8)}
+        out["blank"] = runner.predict_probs_blank_video(audio[:3])
+        return out
+
+    # The fused paths: counters from 0, every request through K4.
+    for fn in counters.values():
+        fn.launches = 0
+    served, forwards = {}, 0
+    for key, runner in runners.items():
+        if "fused" in key[1]:
+            served[key] = requests(runner)
+            forwards += 4
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    print(f"fused serve: {forwards} forwards, launches {launches}")
+    if launches != {"fused_block": forwards, "wavlm_attention_sublayer": 12 * forwards,
+                    "fused_conv_layer": 6 * forwards}:
+        raise AssertionError(f"expected 1 K4, 12 K1 and 6 K3 launches per fused forward: {launches}")
+    for key, runner in runners.items():
+        if key not in served:
+            served[key] = requests(runner)  # int8 on the modular path: no K4
+    if fused_block.launches != forwards:
+        raise AssertionError("the modular int8 path launched K4")
+
     for dtype in ("bfloat16", "float32"):
-        for fused in ("auto", False):
-            runner = runners[dtype, fused]
-            b1 = host_ms(lambda: runner.predict_probs(video[:1], audio[:1]))
-            b8 = host_ms(lambda: runner.predict_probs(video, audio))
-            path = "kernels" if fused == "auto" else "plain"
-            perf[f"{dtype}_{path}"] = {"b1_ms": b1, "b8_clips_per_s": 8e3 / b8}
-            print(f"serve {dtype} {path}: b1 latency {b1:.2f} ms, b8 {8e3 / b8:.1f} clips/s "
-                  f"[{card}]")
-    return launches, perf
+        want = requests(modular[dtype])
+        pairs = (
+            ("fused", served[dtype, "fused"], "float", want, FUSED_PROBS_TOL[dtype]),
+            ("int8_fused", served[dtype, "int8_fused"], "int8", served[dtype, "int8"],
+             FUSED_PROBS_TOL[dtype]),
+            ("int8", served[dtype, "int8"], "float", want, INT8_TOL),
+        )
+        for got_name, got, want_name, ref, tol in pairs:
+            for key, probs in ref.items():
+                rows = 3 if key == "blank" else key
+                out = got[key]
+                if out.shape != (rows, cfg.num_classes) or not np.isfinite(out).all():
+                    raise AssertionError(f"{dtype} {got_name} {key}: bad output {out.shape}")
+                if not np.allclose(out.sum(axis=1), 1.0, atol=1e-4):
+                    raise AssertionError(f"{dtype} {got_name} {key}: probabilities do not sum to 1")
+                err = float(np.abs(out - probs).max())
+                print(f"serve {dtype} {key}: max |{got_name} - {want_name}| = {err:.3e} (tol {tol})")
+                if not err <= tol:
+                    raise AssertionError(f"{dtype} {key}: {got_name} disagrees with {want_name}")
+                if got_name == "int8" and not (out.argmax(axis=1) == probs.argmax(axis=1)).all():
+                    raise AssertionError(f"{dtype} {key}: int8 changes the argmax")
+            if float(got[8].std(axis=0).max()) < 1e-6:
+                raise AssertionError(f"{dtype} {got_name}: probabilities constant across clips")
+
+    return launches["fused_block"], {
+        f"{dtype}_{name}": runner for (dtype, name), runner in runners.items()
+    }
+
+
+def block_entries(dev, modular, video, audio):
+    """K5 and K4 through their public entries on the served model's own
+    tokens, against the modular fusion modules they stand for; the modules'
+    device and host times beside K4's.  -> (K5 launches, K4-vs-modules times)."""
+    from multimodalemotionrecognition_torch.kernels import (
+        FusedBlockSpec,
+        extract_block_params,
+        fused_bidirectional_xattn,
+        fused_block,
+        xattn_params_from_state_dict,
+    )
+
+    runner = modular["float32"]
+    model = runner.model
+    heads = model.v2a_attn.num_heads
+    xattn_params = xattn_params_from_state_dict(model.state_dict(), device=dev)
+    spec = FusedBlockSpec(num_heads=heads, d_model=128, pooling="mean", head="concat",
+                          use_prior=False, num_classes=8)
+    block_params = extract_block_params(model.state_dict(), spec, device=dev)
+    times = {}
+    fused_bidirectional_xattn.launches = 0
+    with torch.inference_mode():
+        for n in (8, 1):
+            frames = (torch.from_numpy(video[:n]).to(dev).float() / 255.0 - runner._mean) / runner._std
+            wave = torch.from_numpy(audio[:n]).to(dev).float() / 32768.0
+            v_feat = model.video_model.encode_frames(frames).contiguous()
+            a_seq = model.audio_model.encode_sequence(wave).contiguous()
+
+            def modules():
+                v = model.v_in_proj(v_feat)
+                a = model.a_in_proj(model.audio_seq_proj(a_seq))
+                v_new = model.v_norm(v + model.v2a_attn(v, a, a))
+                a_new = model.a_norm(a + model.a2v_attn(a, v_new, v_new))
+                v_emb, a_emb = v_new.mean(dim=1), a_new.mean(dim=1)
+                return v, a, v_emb, a_emb, model.xattn_mlp(torch.cat([v_emb, a_emb], dim=1))
+
+            v, a, v_want, a_want, logits_want = modules()
+            v_emb, a_emb = fused_bidirectional_xattn(xattn_params, v, a, num_heads=heads)
+            logits = fused_block(v_feat, a_seq, block_params, spec)
+            torch.cuda.synchronize()
+            err5 = max((v_emb - v_want).abs().max().item(), (a_emb - a_want).abs().max().item())
+            err4 = (logits - logits_want).abs().max().item()
+            print(f"block entries b{n}: max |K5 - modules| = {err5:.3e}, "
+                  f"max |K4 - modules| = {err4:.3e} (tol {FUSION_TOL})")
+            if (v_emb.shape != (n, 128) or logits.shape != (n, 8)
+                    or not torch.isfinite(logits).all() or not max(err4, err5) <= FUSION_TOL):
+                raise AssertionError(f"K4 or K5 disagrees with the modular fusion modules: {err4}, {err5}")
+            times[f"b{n}"] = {
+                "k4_ms": cuda_ms(lambda: fused_block(v_feat, a_seq, block_params, spec)),
+                "modules_ms": cuda_ms(modules),
+                "k4_host_enqueue_ms": enqueue_ms(lambda: fused_block(v_feat, a_seq, block_params, spec)),
+                "modules_host_enqueue_ms": enqueue_ms(modules),
+            }
+            print(f"block entries b{n} (float32): " + ", ".join(
+                f"{key} {value:.4f}" for key, value in times[f"b{n}"].items()))
+    return fused_bidirectional_xattn.launches, times
 
 
 def main() -> int:
@@ -276,20 +646,37 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     k1 = check_k1(dev, gen)
     k3 = check_k3(dev, gen)
-    launches, perf = serve(dev, card)
+    k4 = check_k4(dev, gen)
+    k5 = check_k5(dev, gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "flagship.pt"
+        cfg, video, audio = make_checkpoint(ckpt)
+        launches, runners = serve(dev, card, ckpt, cfg, video, audio)
+        modular = {dtype: runners[f"{dtype}_kernels"] for dtype in ("bfloat16", "float32")}
+        launches["fused_block"], fused_runners = serve_fused(
+            dev, card, ckpt, cfg, video, audio, modular)
+    runners.update(fused_runners)
+    launches["fused_bidirectional_xattn"], k4["against_modules"] = block_entries(
+        dev, modular, video, audio)
+    perf = time_runners(runners, video, audio, card)
 
+    csrc = "multimodalemotionrecognition_torch/kernels/csrc/"
+    ops = "multimodalemotionrecognition_tpu/ops/"
     kernels = []
     for name, source, replaces, rep in (
-        ("wavlm_attention_sublayer", "multimodalemotionrecognition_torch/kernels/csrc/wavlm_attn.cu",
-         "multimodalemotionrecognition_tpu/ops/pallas_wavlm_attn.py:83", k1),
-        ("fused_conv_layer", "multimodalemotionrecognition_torch/kernels/csrc/conv_fe.cu",
-         "multimodalemotionrecognition_tpu/ops/pallas_conv_fe.py:46", k3),
+        ("wavlm_attention_sublayer", "wavlm_attn.cu", "pallas_wavlm_attn.py:83", k1["bfloat16"]),
+        ("fused_conv_layer", "conv_fe.cu", "pallas_conv_fe.py:46", k3["bfloat16"]),
+        # One kernel with a samples-per-block parameter for both TPU kernels
+        # (_block_kernel :436, _block_kernel_batched :506).
+        ("fused_block", "fused_block.cu", "pallas_fused_block.py:436", k4),
+        ("fused_bidirectional_xattn", "xattn.cu", "pallas_xattn.py:102", k5),
     ):
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "dtype": "bfloat16", **rep["bfloat16"],
-            "float32": rep["float32"],
-        })
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was not launched on its path")
+        kernels.append({"name": name, "route": "cuda", "source": csrc + source,
+                        "replaces": ops + replaces, "launches": launches[name], **rep})
+    kernels[0]["float32"], kernels[1]["float32"] = k1["float32"], k3["float32"]
+    kernels[2]["also_replaces"] = ops + "pallas_fused_block.py:506"
     print(json.dumps({"kernels": kernels, "serve": perf, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,12 +3,14 @@
 Beside `multimodalemotionrecognition_tpu` (the JAX reference), this package
 serves the flagship model (`ModelConfig(fusion="xattn", use_wavlm=True)`) on
 an NVIDIA Hopper GPU.  The layout mirrors the JAX package, so each module has
-a counterpart of the same name there.  The two Pallas kernels of the serving
-path are hand-written CUDA C++ (`kernels/csrc/`), each with a plain PyTorch
-version beside it that runs for CPU tensors.
+a counterpart of the same name there.  The Pallas kernels of the serving
+paths (the WavLM attention sublayer, the conv feature extractor, the whole
+fusion block of `TorchModelRunner(fused=True)` and its attention core) are
+hand-written CUDA C++ (`kernels/csrc/`), each with a plain PyTorch version
+beside it that runs for CPU tensors.
 
-The package imports torch and numpy, never jax or flax.  Of the JAX package
-it uses only the framework-free `config` module.
+The package imports torch and numpy, never jax or flax, and nothing of the
+JAX package: `config.py` is its own copy of the configuration classes.
 """
 
 from multimodalemotionrecognition_torch.config import (

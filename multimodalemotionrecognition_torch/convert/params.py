@@ -15,6 +15,8 @@ torch state-dict path, so the walk is mechanical:
     batch_stats var   -> running_var
 
 plus a zero `num_batches_tracked` beside each BatchNorm's running stats.
+`state_dict_key` is the key map alone, e.g. to hold the JAX runner's int8
+leaves and scales against the port's quantised modules.
 """
 
 from __future__ import annotations
@@ -24,10 +26,24 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["flax_params_to_state_dict"]
+__all__ = ["flax_params_to_state_dict", "state_dict_key"]
 
 _BATCH_STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+_LEAF_NAMES = {
+    "kernel": "weight", "scale": "weight", "embedding": "weight",
+    "in_proj_kernel": "in_proj_weight",
+}
 _KERNEL_PERMUTATIONS = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
+
+
+def state_dict_key(path: Tuple[str, ...]) -> str:
+    """(collection, *module path, leaf) -> the port's state-dict key."""
+    mod_path, _, leaf_name = ".".join(path[1:]).rpartition(".")
+    if path[0] == "batch_stats":
+        leaf_name = _BATCH_STAT_LEAVES[leaf_name]
+    else:
+        leaf_name = _LEAF_NAMES.get(leaf_name, leaf_name)
+    return f"{mod_path}.{leaf_name}" if mod_path else leaf_name
 
 
 def flax_params_to_state_dict(
@@ -38,25 +54,18 @@ def flax_params_to_state_dict(
     out: Dict[str, torch.Tensor] = {}
     bn_modules = set()
     for path, leaf in flat.items():
-        collection = path[0]
+        # A path element may itself hold dots ("conv_layers.0.conv.kernel").
         mod_path, _, leaf_name = ".".join(path[1:]).rpartition(".")
         arr = np.asarray(leaf)
-        if collection == "batch_stats":
-            key = f"{mod_path}.{_BATCH_STAT_LEAVES[leaf_name]}"
+        if path[0] == "batch_stats":
             bn_modules.add(mod_path)
         elif leaf_name == "kernel":
             if arr.ndim not in _KERNEL_PERMUTATIONS:
                 raise ValueError(f"Unsupported kernel rank {arr.ndim} at {mod_path}")
             arr = arr.transpose(_KERNEL_PERMUTATIONS[arr.ndim])
-            key = f"{mod_path}.weight"
-        elif leaf_name in ("scale", "embedding"):
-            key = f"{mod_path}.weight"
         elif leaf_name == "in_proj_kernel":
             arr = arr.T
-            key = f"{mod_path}.in_proj_weight"
-        else:
-            key = f"{mod_path}.{leaf_name}" if mod_path else leaf_name
-        out[key] = torch.tensor(arr)
+        out[state_dict_key(path)] = torch.tensor(arr)
     for mod in bn_modules:
         out[f"{mod}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
     return out

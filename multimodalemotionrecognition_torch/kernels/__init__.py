@@ -5,14 +5,36 @@ from multimodalemotionrecognition_torch.kernels.conv_fe import (
     fused_conv_layer,
     fused_conv_layer_plain,
 )
+from multimodalemotionrecognition_torch.kernels.fused_block import (
+    FusedBlockParams,
+    FusedBlockSpec,
+    extract_block_params,
+    fused_block,
+    fused_block_plain,
+)
 from multimodalemotionrecognition_torch.kernels.wavlm_attn import (
     wavlm_attention_sublayer,
     wavlm_attention_sublayer_plain,
 )
+from multimodalemotionrecognition_torch.kernels.xattn import (
+    XattnParams,
+    fused_bidirectional_xattn,
+    fused_bidirectional_xattn_plain,
+    xattn_params_from_state_dict,
+)
 
 __all__ = [
+    "FusedBlockParams",
+    "FusedBlockSpec",
+    "XattnParams",
+    "extract_block_params",
+    "fused_bidirectional_xattn",
+    "fused_bidirectional_xattn_plain",
+    "fused_block",
+    "fused_block_plain",
     "fused_conv_layer",
     "fused_conv_layer_plain",
     "wavlm_attention_sublayer",
     "wavlm_attention_sublayer_plain",
+    "xattn_params_from_state_dict",
 ]

@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels and load them with ctypes.
 
-Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into one
-shared library with a plain C interface; no PyTorch headers are involved, so
-the build takes seconds.  It happens at first use, into `_build/` beside this
-file (listed in `.gitignore`), under a name keyed by a hash of the sources
-and flags, so a changed source is rebuilt and an unchanged one is reused.
+Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`), one
+`nvcc` process per source and all of them at once, and the objects are
+linked into one shared library with a plain C interface; no PyTorch headers
+are involved, so the build takes seconds.  It happens at first use, into
+`_build/` beside this file (listed in `.gitignore`), under a name keyed by a
+hash of the sources, headers and flags, so a changed source is rebuilt and
+an unchanged one is reused.
 
 There is no fallback: without `nvcc`, or when the build fails, `load_library`
 raises.
@@ -36,7 +38,7 @@ CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -52,6 +54,13 @@ _SIGNATURES = {
     "emo_conv_fe_f32": [_P] * 3 + [_I] * 9 + [_P],
     "emo_conv_fe_bf16": [_P] * 3 + [_I] * 9 + [_P],
 }
+# pointer table, its length, int table, its length, eps, dh^-0.5, stream
+# (the tables are laid out in csrc/fusion.cuh and filled by kernels/xattn.py)
+_FUSION_ARGTYPES = [
+    ctypes.POINTER(_P), _I, ctypes.POINTER(_I), _I, ctypes.c_float, ctypes.c_float, _P,
+]
+for _name in ("emo_fused_block_f32", "emo_fused_block_bf16", "emo_xattn"):
+    _SIGNATURES[_name] = _FUSION_ARGTYPES
 
 
 def find_nvcc() -> str:
@@ -70,10 +79,39 @@ def find_nvcc() -> str:
 
 def _library_path(sources) -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in (*sources, *sorted(CSRC_DIR.glob("*.cuh"))):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libemo_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def _build(nvcc: str, sources, lib_path: Path) -> None:
+    """Compile every source in its own nvcc process, all started together,
+    then link; raises with nvcc's output when a step fails."""
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in sources:
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, f"-I{CSRC_DIR}", "-c", "-o", str(obj), str(src)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            jobs.append((cmd, obj, proc))
+        log, failed = [], []
+        for cmd, _, proc in jobs:  # wait for all, so none outlives a failure
+            out, err = proc.communicate()
+            log.append(out + err)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        # Link under a temporary name and rename, so a concurrent or cut
+        # build never leaves a half-written library under the final name.
+        tmp_lib = Path(tmp) / lib_path.name
+        cmd = [nvcc, "-shared", "-o", str(tmp_lib), *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+        (BUILD_DIR / (lib_path.stem + ".log")).write_text("".join(log))
+        os.replace(tmp_lib, lib_path)
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,19 +122,7 @@ def load_library() -> ctypes.CDLL:
     if not lib_path.exists():
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # Build into a temporary name and rename, so a concurrent or cut
-        # build never leaves a half-written library under the final name.
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, f"-I{CSRC_DIR}", "-o", tmp, *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-            )
-        (BUILD_DIR / (lib_path.stem + ".log")).write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib_path)
+        _build(nvcc, sources, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

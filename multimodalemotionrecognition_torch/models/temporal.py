@@ -2,7 +2,9 @@
 
 Counterpart of the JAX package's `models/temporal.py` (reference
 `src/models/temporal.py:9-110`), with the same state-dict paths
-(`pool.score.{0,1,4}.*`).  The transformer pooler is not ported yet.
+(`pool.score.{0,1,4}.*`).  Both modes also run inside the whole-fusion-block
+kernel (`kernels/fused_block.py`) when the runner is built with `fused=True`.
+The transformer pooler is not ported yet.
 """
 
 from __future__ import annotations

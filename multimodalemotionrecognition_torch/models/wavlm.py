@@ -12,7 +12,8 @@ are on CUDA):
 
   * K1 `kernels/wavlm_attn.py` runs each encoder layer's attention sublayer
     after the q/k/v projections (scores + gated bias, softmax, context,
-    out-projection, residual, post-LayerNorm);
+    out-projection, residual, post-LayerNorm); its constant operands are
+    made once by `cache_kernel_operands` (from an int8 out-projection too);
   * K3 `kernels/conv_fe.py` runs conv layers L1..L6 with their GELU.
 
 L0 (k=10, stride 5, one input channel) and its GroupNorm stay `F.conv1d`
@@ -151,6 +152,31 @@ class WavLMEncoderLayer(nn.Module):
         self.layer_norm = nn.LayerNorm(e, eps=config.layer_norm_eps)
         self.feed_forward = _FeedForward(config)
         self.final_layer_norm = nn.LayerNorm(e, eps=config.layer_norm_eps)
+        self._k1_operands = None
+
+    def _make_k1_operands(self):
+        """K1's constant operands: the out-projection as the (in, out)
+        matrix in the compute dtype (dequantised when the layer is int8),
+        and b_o, LayerNorm scale and bias as float32 [1, E]."""
+        e = self.layer_norm.weight.shape[0]
+        out_proj = self.attention.out_proj
+        return (
+            out_proj.weight.t().to(self.layer_norm.weight.dtype).contiguous(),
+            out_proj.bias.float().view(1, e),
+            self.layer_norm.weight.float().view(1, e),
+            self.layer_norm.bias.float().view(1, e),
+        )
+
+    def cache_kernel_operands(self) -> None:
+        """Make K1's constant operands once, after the weights are loaded
+        and cast, instead of on every forward.  Moving or casting the
+        module afterwards drops the cache."""
+        with torch.no_grad():
+            self._k1_operands = self._make_k1_operands()
+
+    def _apply(self, fn, recurse=True):
+        self._k1_operands = None  # made for one device and dtype
+        return super()._apply(fn, recurse)
 
     def forward(
         self, hidden: torch.Tensor, position_bias: Optional[torch.Tensor]
@@ -166,10 +192,7 @@ class WavLMEncoderLayer(nn.Module):
                 hidden, q, k, v,
                 gate.float().reshape(b, h * t, 1),
                 position_bias.float().reshape(h * t, t),
-                attn.out_proj.weight.t().contiguous(),
-                attn.out_proj.bias.float().view(1, e),
-                self.layer_norm.weight.float().view(1, e),
-                self.layer_norm.bias.float().view(1, e),
+                *(self._k1_operands or self._make_k1_operands()),
                 num_heads=h,
                 seq_len=t,
                 eps=self.config.layer_norm_eps,
@@ -283,6 +306,11 @@ class WavLMModel(nn.Module):
             )
             t_log = (t_log - k) // s + 1
         return x[:, :t_log]
+
+    def cache_kernel_operands(self) -> None:
+        """See `WavLMEncoderLayer.cache_kernel_operands`."""
+        for layer in self.encoder.layers:
+            layer.cache_kernel_operands()
 
     def forward(self, input_values: torch.Tensor) -> torch.Tensor:
         cfg = self.config

@@ -13,11 +13,18 @@ the duck-typed contract that `serving/batcher.py` relies on:
   * Wires: uint8 video normalised on the device (`device_normalize`), and
     int16 PCM audio dequantised on the device.
   * float32 or bfloat16 compute (the model's weights are cast once).
+  * `quantize_int8=True`: weight-only int8 for the `nn.Linear` matrices
+    (`runtime/quant.py`), stored int8 on the device and dequantised where
+    they are used.
+  * `fused=True`: everything between the two towers and the logits runs in
+    one call of the whole-fusion-block kernel (`runtime/fused.py`, K4); with
+    `quantize_int8` the block's matrices stay int8 and K4 dequantises them.
+    A model the kernel does not take (not xattn, or the transformer pooler)
+    raises `ValueError`; the JAX runner warns and serves the modular path.
 
 No fallback: `device="cuda"` on a host without CUDA raises, and so does a
-kernel that does not build or launch.  `quantize_int8`, `fused` (the
-whole-fusion-block kernel), `mesh` and `donate` are not ported yet and raise
-`NotImplementedError`.
+kernel that does not build or launch.  `mesh` and `donate` are not ported
+yet and raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -43,6 +50,11 @@ from multimodalemotionrecognition_torch.convert.checkpoint import (
     normalize_torch_state_dict,
 )
 from multimodalemotionrecognition_torch.models.factory import build_model
+from multimodalemotionrecognition_torch.runtime.fused import (
+    build_fused_xattn_forward,
+    supports_fused,
+)
+from multimodalemotionrecognition_torch.runtime.quant import quantize_linears_int8
 
 __all__ = ["TorchModelRunner"]
 
@@ -86,8 +98,7 @@ class TorchModelRunner:
         fused_wavlm: Any = "auto",
         device: str | torch.device = "cuda",
     ):
-        for name, value in (("quantize_int8", quantize_int8), ("fused", fused),
-                            ("donate", donate), ("mesh", mesh)):
+        for name, value in (("donate", donate), ("mesh", mesh)):
             if value:
                 raise NotImplementedError(
                     f"TorchModelRunner({name}=...) is not ported yet (ROADMAP queue 1, item 7)"
@@ -132,6 +143,12 @@ class TorchModelRunner:
             geometry["fused_attention"] = geometry["fused_conv"] = fused_wavlm
             model_config = dataclasses.replace(model_config, wavlm_geometry=geometry)
         self.model_config = model_config
+        if fused and not supports_fused(model_config):
+            raise ValueError(
+                "TorchModelRunner(fused=True) takes an xattn model with mean or attn "
+                f"pooling, not fusion={model_config.canonical_fusion!r} with "
+                f"temporal_pooling={model_config.temporal_pooling!r}"
+            )
         self.model = build_model(model_config, device=self.device)
 
         missing, _unexpected = self.model.load_state_dict(sd, strict=False)
@@ -146,7 +163,15 @@ class TorchModelRunner:
         with torch.no_grad():
             for key in missing:
                 state[key].zero_()
+        # Quantise from the float32 weights; K4's operands (float32 or int8)
+        # are taken before the model is cast to the compute dtype, as the
+        # kernel computes in float32 whatever the towers' dtype.
+        self.quantized = quantize_linears_int8(self.model) if quantize_int8 else {}
+        self._fused_forward = None
+        if fused:
+            self._fused_forward = build_fused_xattn_forward(self.model, model_config)
         self.model.to(self.dtype)
+        self.model.audio_model.wavlm.cache_kernel_operands()
         self._mean = torch.tensor(IMAGENET_MEAN, device=self.device).view(1, 1, 3, 1, 1)
         self._std = torch.tensor(IMAGENET_STD, device=self.device).view(1, 1, 3, 1, 1)
 
@@ -165,8 +190,10 @@ class TorchModelRunner:
             audio = audio.float() / 32768.0
         if video.dtype == torch.uint8:
             video = (video.float() / 255.0 - self._mean) / self._std
-        logits = self.model(video.to(self.dtype), audio.to(self.dtype))
-        return torch.softmax(logits.float(), dim=1)
+        video, audio = video.to(self.dtype), audio.to(self.dtype)
+        if self._fused_forward is not None:
+            return self._fused_forward(video, audio)
+        return torch.softmax(self.model(video, audio).float(), dim=1)
 
     def _put_batch(self, arr) -> torch.Tensor:
         """Host array -> device tensor; staged tensors pass through."""

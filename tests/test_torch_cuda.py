@@ -10,11 +10,21 @@ import pytest
 import torch
 
 from multimodalemotionrecognition_torch.kernels import (
+    FusedBlockSpec,
+    extract_block_params,
+    fused_bidirectional_xattn,
+    fused_bidirectional_xattn_plain,
+    fused_block,
+    fused_block_plain,
     fused_conv_layer,
     fused_conv_layer_plain,
     wavlm_attention_sublayer,
     wavlm_attention_sublayer_plain,
+    xattn_params_from_state_dict,
 )
+from multimodalemotionrecognition_torch.models.factory import init_parameters
+from multimodalemotionrecognition_torch.models.fusion import FusionModel
+from multimodalemotionrecognition_torch.runtime.quant import quantize_linears_int8
 
 pytestmark = pytest.mark.cuda
 
@@ -84,3 +94,99 @@ def test_conv_kernel_matches_plain(cuda, dtype, atol, rtol, t_in, k, gelu_in, ge
     ref = want[:, :t_out].float()
     err = (got[:, :t_out].float() - ref).abs().max().item()
     assert err <= max(atol, rtol * ref.abs().max().item()), err
+
+
+class _Tower(torch.nn.Module):
+    def __init__(self, width):
+        super().__init__()
+        self.embedding_dim = self.sequence_dim = width
+
+
+def _fusion_block(device, pooling, head, prior, int8, seed=2):
+    """A full-width fusion block, every parameter random -> (model, params, spec)."""
+    g = torch.Generator().manual_seed(seed)
+    model = FusionModel(
+        _Tower(768), _Tower(512), num_classes=8, xattn_head=head, temporal_pooling=pooling,
+        xattn_use_emotion_prior=prior,
+    )
+    init_parameters(model, g)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.ndim < 2:
+                p.add_(torch.randn(p.shape, generator=g) * 0.1)
+    model = model.to(device).eval()
+    if int8:
+        quantize_linears_int8(model)
+    spec = FusedBlockSpec(num_heads=4, d_model=128, pooling=pooling, head=head,
+                          use_prior=prior, num_classes=8)
+    return model, extract_block_params(model.state_dict(), spec, device=device), spec
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("b,samples_per_block", [(8, 1), (8, 8), (5, 2), (1, 1)])
+@pytest.mark.parametrize(
+    "pooling,head,prior",
+    [("mean", "concat", False), ("attn", "gated", True), ("attn", "concat", False)],
+)
+def test_fused_block_kernel_matches_plain(
+    cuda, pooling, head, prior, b, samples_per_block, int8, dtype
+):
+    _, params, spec = _fusion_block(cuda, pooling, head, prior, int8)
+    g = torch.Generator().manual_seed(3)
+    v_feat = torch.randn(b, 8, 512, generator=g).abs().to(cuda, dtype)
+    a_seq = torch.randn(b, 149, 768, generator=g).to(cuda, dtype)
+    before = fused_block.launches
+    got = fused_block(v_feat, a_seq, params, spec, samples_per_block=samples_per_block)
+    want = fused_block_plain(v_feat, a_seq, params, spec)
+    torch.cuda.synchronize()
+    assert fused_block.launches == before + 1
+    assert got.shape == (b, 8) and got.dtype == torch.float32
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4, err
+
+
+def test_fused_block_kernel_matches_the_modular_model(cuda):
+    model, params, spec = _fusion_block(cuda, "attn", "gated", True, int8=False)
+    model.video_model.encode_frames = lambda x: x
+    model.audio_model.encode_sequence = lambda x: x
+    g = torch.Generator().manual_seed(4)
+    v_feat = torch.randn(3, 8, 512, generator=g).abs().to(cuda)
+    a_seq = torch.randn(3, 149, 768, generator=g).to(cuda)
+    with torch.no_grad():
+        want = model(v_feat, a_seq)
+    got = fused_block(v_feat, a_seq, params, spec)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_fused_block_kernel_refuses_what_it_does_not_take(cuda):
+    _, params, spec = _fusion_block(cuda, "mean", "concat", False, int8=False)
+    v_feat = torch.randn(2, 8, 512, device=cuda)
+    a_seq = torch.randn(2, 149, 768, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_block(v_feat.transpose(0, 1).contiguous().transpose(0, 1), a_seq, params, spec)
+    with pytest.raises(ValueError, match="outside what the K4 kernel takes"):
+        fused_block(torch.randn(2, 40, 512, device=cuda), a_seq, params, spec)
+
+
+@pytest.mark.parametrize("with_bias", [False, True], ids=["no_bias", "bias"])
+@pytest.mark.parametrize("b,ta", [(8, 149), (3, 37)])
+def test_xattn_kernel_matches_plain(cuda, b, ta, with_bias):
+    model, _, _ = _fusion_block(cuda, "mean", "concat", False, int8=False)
+    params = xattn_params_from_state_dict(model.state_dict(), device=cuda)
+    g = torch.Generator().manual_seed(5)
+    v = torch.randn(b, 8, 128, generator=g).to(cuda)
+    a = torch.randn(b, ta, 128, generator=g).to(cuda)
+    biases = (None, None)
+    if with_bias:
+        biases = ((torch.randn(b, 8, ta, generator=g) * 0.5).to(cuda),
+                  (torch.randn(b, ta, 8, generator=g) * 0.5).to(cuda))
+    before = fused_bidirectional_xattn.launches
+    got = fused_bidirectional_xattn(params, v, a, *biases, num_heads=4)
+    want = fused_bidirectional_xattn_plain(params, v, a, *biases, num_heads=4)
+    torch.cuda.synchronize()
+    assert fused_bidirectional_xattn.launches == before + 1
+    for x, y in zip(got, want):
+        assert x.shape == (b, 128)
+        assert (x - y).abs().max().item() <= 1e-4

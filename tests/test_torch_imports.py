@@ -1,4 +1,4 @@
-"""The port imports neither jax nor flax.
+"""The port imports neither jax nor flax, and nothing of the JAX package.
 
 Checked in a fresh interpreter: this suite's conftest imports jax into the
 test process itself.
@@ -31,10 +31,8 @@ def test_port_imports_no_jax_or_flax():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "multimodalemotionrecognition_torch.runtime.runner" in report["modules"]
     assert "multimodalemotionrecognition_torch.kernels.wavlm_attn" in report["modules"]
+    assert "multimodalemotionrecognition_torch.kernels.fused_block" in report["modules"]
+    assert "multimodalemotionrecognition_torch.runtime.fused" in report["modules"]
     assert report["heavy"] == []
-    # Of the JAX package only its framework-free config module is used.
-    assert set(report["tpu"]) <= {
-        "multimodalemotionrecognition_tpu",
-        "multimodalemotionrecognition_tpu.config",
-        "multimodalemotionrecognition_tpu.version",
-    }
+    # Not even the JAX package's framework-free modules: the port has its own config.
+    assert report["tpu"] == []

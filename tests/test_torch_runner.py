@@ -152,7 +152,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
         build.load_library.cache_clear()
 
 
-@pytest.mark.parametrize("option", ["quantize_int8", "fused", "donate", "mesh"])
+@pytest.mark.parametrize("option", ["donate", "mesh"])
 def test_unported_runner_options_raise(ckpt, option):
     with pytest.raises(NotImplementedError):
         TorchModelRunner(ckpt, device="cpu", **{option: (4, 1) if option == "mesh" else True})
