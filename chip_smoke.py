@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port: build, check and time its kernels,
-then serve the flagship model at full width through `TorchModelRunner`.
+serve the flagship model at full width through `TorchModelRunner`, and train
+it through `EmotionTrainer`.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
@@ -37,6 +38,30 @@ Phases (the first failure ends the run with a non-zero exit code):
                tokens, against the modular fusion modules they stand for, with
                the modules' device and host times beside K4's.
   7. timing  - b1 latency and b8 clips/s of all ten runners, taking turns.
+  8. train kernels - K1 with its two in-kernel dropouts (0.1, 0.1) and K2,
+               its backward, at the training shapes (B=16, T=149, E=768), and
+               K3 (L1..L6 at B=16, as phase 3 holds it at B=8), in
+               float32 and bfloat16: both dropout masks read out of the
+               kernel through crafted inputs and held bit for bit against
+               the hash's plain version; K1's output and all ten of K2's
+               gradients (with and without dropout, from a seeded cotangent)
+               against the plain versions; two runs of K2 bit-identical;
+               device times behind the plug, and K2's bound.
+  9. train   - `EmotionTrainer` on the full-width flagship, two-stage, batch
+               16 (uint8 video with brightness and noise replayed on the
+               device, float32 audio), in float32 and in bfloat16 compute
+               with float32 parameters: 3 stage-1 steps, the stage flip, 3
+               stage-2 steps, each through `run_epoch` (and 8 more per stage
+               for the step time).  Checks: finite
+               losses; parameters frozen in a stage bit-identical after it
+               and trainable ones changed; the Adam count reset at the flip;
+               BatchNorm statistics moved; per step 12 K1 launches less the
+               LayerDrop skips, 6 K3, and one K2 per trainable encoder layer
+               that ran (none in stage 1); the saved checkpoint through
+               `TorchModelRunner` gives the trainer's eval loss and
+               predictions.  Step times (median) and peak device memory;
+               then two more stage-2 steps under `torch.profiler` for the
+               device's busy share and the device time of K1, K2 and K3.
 
 The line before the last two is the JSON kernel report; then the card's
 line; the last line is {"ok": true, "device": {...}}.
@@ -63,6 +88,18 @@ PROBS_TOL = {"float32": 1e-3, "bfloat16": 2e-2}  # abs, kernel path vs plain pat
 FUSION_TOL = 1e-4  # abs, K4 logits and K5 embeddings (float32 math, other sum order)
 FUSED_PROBS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # abs, K4 (float32 math) vs modules
 INT8_TOL = 0.05  # abs on probabilities, int8 weights vs float weights, same argmax
+# K2's gradients, relative to each gradient's largest entry.  float32: another
+# sum order.  bfloat16: kernel and plain version round the operands of every
+# product to bfloat16 at values a float32 rounding apart, and K2 reads K1's
+# context where the plain version recomputes it.
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# The trainer's eval loss against the runner on the saved checkpoint: float32
+# the same modules and weights; bfloat16 the runner casts the weights once,
+# the trainer per step, and the towers round differently.
+EVAL_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+# Per stage: 3 steps, then the stage's checks, then 8 more steps whose median
+# is the step time (the first steps of a stage pay cuDNN's algorithm choice).
+TRAIN_BATCH, TRAIN_STEPS, TIMED_STEPS = 16, 3, 8
 # Published H100 SXM peaks: HBM3 bytes/s; dense FLOP/s by operand type (float32
 # outside the tensor cores).
 PEAK_BYTES = 3.35e12
@@ -139,6 +176,21 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _sublayer_inputs(dev, gen, dtype, b, t=149, e=768, h=12):
+    """K1's ten operands at the WavLM-base widths, random from `gen`."""
+    def r(*shape, scale=1.0, shift=0.0, dt=dtype):
+        return (torch.randn(*shape, generator=gen) * scale + shift).to(dev, dt)
+
+    return [
+        r(b, t, e), r(b, t, e, scale=(e // h) ** -0.5), r(b, t, e), r(b, t, e),
+        (1.0 + torch.rand(b, h * t, 1, generator=gen)).to(dev),
+        r(h * t, t, dt=torch.float32), r(e, e, scale=e**-0.5),
+        r(1, e, scale=0.1, dt=torch.float32),
+        r(1, e, scale=0.1, shift=1.0, dt=torch.float32),
+        r(1, e, scale=0.1, dt=torch.float32),
+    ]
+
+
 def check_k1(dev, gen):
     from multimodalemotionrecognition_torch.kernels import (
         wavlm_attention_sublayer,
@@ -148,17 +200,7 @@ def check_k1(dev, gen):
     b, t, e, h = 8, 149, 768, 12
     report = {}
     for dtype in (torch.float32, torch.bfloat16):
-        def r(*shape, scale=1.0, shift=0.0, dt=dtype):
-            return (torch.randn(*shape, generator=gen) * scale + shift).to(dev, dt)
-
-        args = [
-            r(b, t, e), r(b, t, e, scale=(e // h) ** -0.5), r(b, t, e), r(b, t, e),
-            (1.0 + torch.rand(b, h * t, 1, generator=gen)).to(dev),
-            r(h * t, t, dt=torch.float32), r(e, e, scale=e**-0.5),
-            r(1, e, scale=0.1, dt=torch.float32),
-            r(1, e, scale=0.1, shift=1.0, dt=torch.float32),
-            r(1, e, scale=0.1, dt=torch.float32),
-        ]
+        args = _sublayer_inputs(dev, gen, dtype, b)
         got = wavlm_attention_sublayer(*args, num_heads=h, seq_len=t)
         want = wavlm_attention_sublayer_plain(*args, num_heads=h, seq_len=t)
         torch.cuda.synchronize()
@@ -178,7 +220,9 @@ def check_k1(dev, gen):
     return report
 
 
-def check_k3(dev, gen):
+def check_k3(dev, gen, b=8):
+    """K3's six layers at batch `b`: 8 is the serving bucket, TRAIN_BATCH what
+    a train step gives the frozen feature extractor."""
     from multimodalemotionrecognition_torch.config import WavLMConfig
     from multimodalemotionrecognition_torch.kernels import (
         fused_conv_layer,
@@ -186,7 +230,6 @@ def check_k3(dev, gen):
     )
 
     cfg = WavLMConfig()
-    b = 8
     t_log = (48000 - cfg.conv_kernel[0]) // cfg.conv_stride[0] + 1
     report = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -233,7 +276,7 @@ def check_k3(dev, gen):
             total["library_ms"] += library_ms
             t_in = t_out
         total.update(bound(flops, moved, dtype))
-        print(f"K3 {name} L1-L6: kernel {total['ms']:.4f} ms plain {total['plain_ms']:.4f} ms "
+        print(f"K3 {name} B={b} L1-L6: kernel {total['ms']:.4f} ms plain {total['plain_ms']:.4f} ms "
               f"conv1d+gelu {total['library_ms']:.4f} ms bound {total['bound_ms']:.5f} ms "
               f"({total['bound_by']})")
         report[name] = total
@@ -375,6 +418,331 @@ def check_k5(dev, gen):
     return report
 
 
+def _masks_from_kernel(dev, dtype, seed, rate, b=TRAIN_BATCH, t=149, e=768, h=12):
+    """Both keep masks as the kernel draws them, read through its output.
+    With q = k = 0 the probabilities are uniform; with W_o = I, b_o = 0,
+    hidden = 0 and a one-hot v the pre-LayerNorm row holds one dropped
+    probability per column, zero where dropped, so after the LayerNorm
+    (scale 1, bias 0) its sign is the mask: dh - 1 key columns per pass, the
+    head's last column staying zero so that a row never comes out constant.
+    With v = 0 and b_o = 1 the row holds the hidden mask itself (E columns:
+    a row with none dropped does not occur at a rate of 0.1)."""
+    from multimodalemotionrecognition_torch.kernels import wavlm_attention_sublayer
+
+    dh = e // h
+    zeros = torch.zeros(b, t, e, device=dev, dtype=dtype)
+    gate = torch.ones(b, h * t, 1, device=dev)
+    bias = torch.zeros(h * t, t, device=dev)
+    eye = torch.eye(e, device=dev, dtype=dtype)
+    row0 = torch.zeros(1, e, device=dev)
+    row1 = torch.ones(1, e, device=dev)
+    attn = torch.zeros(b, h, t, t, dtype=torch.bool, device=dev)
+    for j0 in range(0, t, dh - 1):
+        n = min(dh - 1, t - j0)
+        v = zeros.clone().view(b, t, h, dh)
+        v[:, torch.arange(j0, j0 + n), :, torch.arange(n)] = 1.0
+        out = wavlm_attention_sublayer(
+            zeros, zeros, zeros, v.view(b, t, e), gate, bias, eye, row0, row1, row0,
+            num_heads=h, seq_len=t, attn_dropout=rate, dropout_seed=seed)
+        attn[:, :, :, j0:j0 + n] = (out.view(b, t, h, dh)[..., :n] > 0).permute(0, 2, 1, 3)
+    out = wavlm_attention_sublayer(
+        zeros, zeros, zeros, zeros, gate, bias, eye, row1, row1, row0,
+        num_heads=h, seq_len=t, hidden_dropout=rate, dropout_seed=seed)
+    return attn, out > 0
+
+
+def check_train_kernels(dev, gen):
+    """K1 with dropout and K2 at the training shapes -> (K1 report, K2 report)."""
+    from multimodalemotionrecognition_torch.kernels import (
+        hash_keep_plain,
+        wavlm_attention_sublayer,
+        wavlm_attention_sublayer_backward,
+        wavlm_attention_sublayer_backward_plain,
+        wavlm_attention_sublayer_forward,
+        wavlm_attention_sublayer_plain,
+    )
+    from multimodalemotionrecognition_torch.kernels.wavlm_attn import drop_threshold
+
+    b, t, e, h, rate, seed = TRAIN_BATCH, 149, 768, 12, 0.1, 20240917
+    mask32 = 0xFFFFFFFF
+    batch = (seed + torch.arange(b, device=dev) * 0x632BE59B) & mask32
+    heads = (torch.arange(1, h + 1, device=dev) * 0x9E3779B9) & mask32
+    want_attn = hash_keep_plain(batch[:, None] + heads[None, :], (t, t), drop_threshold(rate))
+    want_hid = hash_keep_plain(batch + 0x7FEB352D, (t, e), drop_threshold(rate))
+    k1_report, k2_report = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        got_attn, got_hid = _masks_from_kernel(dev, dtype, seed, rate)
+        torch.cuda.synchronize()
+        wrong = int((got_attn != want_attn).sum()) + int((got_hid != want_hid).sum())
+        print(f"K1 dropout {name}: masks read from the kernel, {got_attn.numel()} attention + "
+              f"{got_hid.numel()} hidden bits, {wrong} differ from the plain hash; kept "
+              f"{got_attn.float().mean().item():.4f} / {got_hid.float().mean().item():.4f}")
+        if wrong:
+            raise AssertionError(f"K1 {name}: dropout masks differ from the plain hash")
+
+        args = _sublayer_inputs(dev, gen, dtype, b)
+        flops = 4 * b * t * t * e + 2 * b * t * e * e
+        for label, kw in (("no dropout", {}),
+                          ("dropout", dict(attn_dropout=rate, hidden_dropout=rate,
+                                           dropout_seed=seed))):
+            kw = dict(num_heads=h, seq_len=t, **kw)
+            got = wavlm_attention_sublayer(*args, **kw)
+            want = wavlm_attention_sublayer_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ms = cuda_ms(lambda: wavlm_attention_sublayer(*args, **kw))
+            plain_ms = cuda_ms(lambda: wavlm_attention_sublayer_plain(*args, **kw))
+            limit = bound(flops, nbytes(*args, got), dtype)
+            print(f"K1 {name} B={b} {label}: max_abs_err={err:.3e} (tol {K1_TOL[dtype]}) "
+                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {limit['bound_ms']:.5f} ms "
+                  f"({limit['bound_by']})")
+            if not err <= K1_TOL[dtype]:
+                raise AssertionError(f"K1 {name} {label} disagrees with its plain version: {err}")
+            k1_report[f"{name}_b16_{label.replace(' ', '_')}"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **limit}
+
+        dout = torch.randn(b, t, e, generator=gen).to(dev, dtype)
+        # dctx and dwo over the B*T rows; scores, dprobs, dv, dq and dk per head.
+        flops = 4 * b * t * e * e + 10 * b * t * t * e
+        for label, kw in (("no dropout", {}),
+                          ("dropout", dict(attn_dropout=rate, hidden_dropout=rate,
+                                           dropout_seed=seed))):
+            kw = dict(num_heads=h, seq_len=t, **kw)
+            leaves = [a.clone().requires_grad_() for a in args]
+            got = torch.autograd.grad(wavlm_attention_sublayer(*leaves, **kw), leaves, dout)
+            again = torch.autograd.grad(wavlm_attention_sublayer(*leaves, **kw), leaves, dout)
+            want = wavlm_attention_sublayer_backward_plain(dout, *args, **kw)
+            torch.cuda.synchronize()
+            worst = 0.0
+            for gname, x, y, z in zip(("hidden", "q", "k", "v", "gate", "bias", "wo", "bo",
+                                       "lns", "lnb"), got, want, again):
+                scale = y.float().abs().max().item()
+                err = (x.float() - y.float()).abs().max().item() / scale
+                worst = max(worst, err)
+                if x.shape != y.shape or not torch.isfinite(x).all() or not err <= GRAD_TOL[dtype]:
+                    raise AssertionError(
+                        f"K2 {name} {label}: d{gname} disagrees with the plain backward: "
+                        f"{err:.3e} of its largest entry {scale:.3e}")
+                if not torch.equal(x, z):
+                    raise AssertionError(f"K2 {name} {label}: d{gname} differs between two runs")
+            _, ctx, pre = wavlm_attention_sublayer_forward(*args, **kw)
+
+            def kernel():
+                return wavlm_attention_sublayer_backward(dout, *args, ctx, pre, **kw)
+
+            ms = cuda_ms(kernel)
+            plain_ms = cuda_ms(lambda: wavlm_attention_sublayer_backward_plain(dout, *args, **kw))
+            limit = bound(flops, nbytes(dout, *args[1:7], args[8], ctx, pre, *kernel()), dtype)
+            print(f"K2 {name} B={b} {label}: ten gradients, worst error {worst:.3e} of the "
+                  f"gradient's largest entry (tol {GRAD_TOL[dtype]}), two runs bit-identical; "
+                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {limit['bound_ms']:.5f} ms "
+                  f"({limit['bound_by']}; {flops / 1e9:.3f} GFLOP)")
+            k2_report[f"{name}_{label.replace(' ', '_')}"] = {
+                "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **limit, "library_ms": None}
+    return k1_report, k2_report
+
+
+class _Batch:
+    """What `EmotionTrainer.run_epoch` takes from a loader."""
+
+    def __init__(self, video, audio, labels, aug):
+        self.video, self.audio, self.labels, self.aug = video, audio, labels, aug
+        self.valid = np.ones(len(labels), bool)
+        self.size = len(labels)
+
+
+def _train_batches(n, seed, augment=True):
+    rng = np.random.default_rng(seed)
+    b = TRAIN_BATCH
+    out = []
+    for _ in range(n):
+        aug = np.stack([rng.uniform(0.8, 1.2, b), rng.uniform(0.0, 0.03, b)], axis=1)
+        out.append(_Batch(
+            rng.integers(0, 256, (b, 8, 3, 112, 112), dtype=np.uint8),
+            (rng.standard_normal((b, 1, 48000)) * 0.1).astype(np.float32),
+            rng.integers(0, 8, b).astype(np.int64),
+            aug.astype(np.float32) if augment else None,
+        ))
+    return out
+
+
+def profile_steps(step, n: int = 2) -> dict:
+    """Device time of `n` calls of step() by `torch.profiler` -> busy share
+    of the wall time and the kernels' device time per step, by group."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    groups = {"K1": "::wavlm_attn_", "K2": "::bwd_", "K3": "conv_fe_kernel"}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    # Kernel and copy events only: an operator's row repeats its kernels' time.
+    rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows = [r for r in rows if r[1] > 0.0]
+    if not rows:
+        return {"wall_ms": wall_ms, "device_ms": None}
+    out = {"wall_ms": wall_ms, "device_ms": sum(r[1] for r in rows),
+           "device_launches": sum(r[2] for r in rows)}
+    out["idle_share"] = max(0.0, 1.0 - out["device_ms"] / wall_ms)
+    for label, needle in groups.items():
+        out[f"{label}_ms"] = sum(r[1] for r in rows if needle in r[0])
+    out["top"] = [(k[:60], round(ms, 4), c) for k, ms, c in sorted(rows, key=lambda r: -r[1])[:8]]
+    return out
+
+
+def train(dev, card, tmp):
+    """Phase 9 -> (launch counts of the two trainers' train steps, report)."""
+    from multimodalemotionrecognition_torch.config import ModelConfig, TrainConfig
+    from multimodalemotionrecognition_torch.kernels import (
+        fused_conv_layer,
+        wavlm_attention_sublayer,
+        wavlm_attention_sublayer_backward,
+    )
+    from multimodalemotionrecognition_torch.runtime.runner import TorchModelRunner
+    from multimodalemotionrecognition_torch.train import EmotionTrainer
+
+    counters = {"wavlm_attention_sublayer": wavlm_attention_sublayer,
+                "fused_conv_layer": fused_conv_layer,
+                "wavlm_attention_sublayer_backward": wavlm_attention_sublayer_backward}
+    trainers = {}
+    for dtype in ("float32", "bfloat16"):
+        trainer = EmotionTrainer(
+            ModelConfig(fusion="xattn", use_wavlm=True, compute_dtype=dtype),
+            TrainConfig(two_stage_training=True, seed=SEED, output_dir=str(tmp)), device=dev)
+        trainers[dtype] = (trainer, trainer.init_state())
+    warm = _train_batches(1, SEED + 1)
+    for trainer, state in trainers.values():  # cuDNN algorithm choice, allocator
+        trainer.run_epoch(state, warm, False)
+    torch.cuda.synchronize()
+
+    def check_stage(stage, state, mask, before, stats):
+        """After the stage's first TRAIN_STEPS steps."""
+        if state.opt_state.count != TRAIN_STEPS:
+            raise AssertionError(f"stage {stage}: Adam count {state.opt_state.count}")
+        for name, p in state.params.items():
+            if mask[name] == torch.equal(p, before[name]):
+                raise AssertionError(
+                    f"train stage {stage}: {name} is "
+                    f"{'unchanged though trainable' if mask[name] else 'changed though frozen'}")
+        if any(torch.equal(t, state.batch_stats[n]) for n, t in stats.items()):
+            raise AssertionError(f"train stage {stage}: a BatchNorm statistic did not move")
+        print(f"train stage {stage}: after {TRAIN_STEPS} steps Adam count {state.opt_state.count}, "
+              f"{sum(map(bool, mask.values()))} trainable parameters changed, "
+              f"{len(mask) - sum(map(bool, mask.values()))} frozen ones bit-identical, "
+              f"{len(stats)} BatchNorm statistics moved")
+
+    # The main path: counters from 0, every step through `run_epoch`.
+    for fn in counters.values():
+        fn.launches = 0
+    launches = dict.fromkeys(counters, 0)  # of the train steps alone
+    report = {}
+    for dtype, (trainer, state) in trainers.items():
+        wavlm = state.model.audio_model.wavlm
+        per_stage = TRAIN_STEPS + TIMED_STEPS
+        batches = _train_batches(2 * per_stage, SEED + 2)
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = {1: [], 2: []}, {1: [], 2: []}
+        for stage in (1, 2):
+            mask, lrs = trainer.trainable_mask(stage), trainer.lr_tree(stage, {})
+            trainable_layers = {
+                i for i in range(12)
+                if mask[f"audio_model.wavlm.encoder.layers.{i}.attention.q_proj.weight"]}
+            if trainable_layers != ({10, 11} if stage == 2 else set()):
+                raise AssertionError(f"stage {stage}: trainable encoder layers {trainable_layers}")
+            before = {n: p.detach().clone() for n, p in state.params.items()}
+            stats = {n: t.clone() for n, t in state.batch_stats.items() if "running" in n}
+            for i in range(per_stage):
+                if i == TRAIN_STEPS:
+                    check_stage(stage, state, mask, before, stats)
+                seen = {name: fn.launches for name, fn in counters.items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, metrics = trainer.run_epoch(
+                    state, [batches[(stage - 1) * per_stage + i]], True, mask, lrs,
+                    reset_opt_first=(stage == 2 and i == 0))
+                torch.cuda.synchronize()
+                times[stage].append((time.perf_counter() - t0) * 1e3)
+                losses[stage].append(metrics["loss"])
+                got = {name: fn.launches - seen[name] for name, fn in counters.items()}
+                for name, n in got.items():
+                    launches[name] += n
+                ran = list(wavlm.layers_run)
+                want = {"wavlm_attention_sublayer": len(ran), "fused_conv_layer": 6,
+                        "wavlm_attention_sublayer_backward": len(trainable_layers & set(ran))}
+                print(f"train {dtype} stage {stage} step {i}: loss {metrics['loss']:.4f} "
+                      f"{times[stage][-1]:.1f} ms, layers run {ran}, launches {got}")
+                if ran[0] != 0 or got != want:
+                    raise AssertionError(f"train {dtype} stage {stage}: launches {got}, expected {want}")
+                if not np.isfinite(metrics["loss"]):
+                    raise AssertionError(f"train {dtype} stage {stage}: loss {metrics['loss']}")
+        peak = torch.cuda.max_memory_allocated() / 2**20
+
+        # The trained state, saved in the reference layout, serves what the trainer evaluates.
+        ckpt = Path(tmp) / f"trained_{dtype}.pt"
+        trainer.save_checkpoint(ckpt, state, 0.0)
+        eval_batch = _train_batches(1, SEED + 3, augment=False)[0]
+        to_dev = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        forward = {"wavlm_attention_sublayer": 12, "fused_conv_layer": 6,
+                   "wavlm_attention_sublayer_backward": 0}
+        seen = {name: fn.launches for name, fn in counters.items()}
+        _, cls_loss, _, preds = trainer.eval_step(
+            state, to_dev(eval_batch.video), to_dev(eval_batch.audio),
+            to_dev(eval_batch.labels), to_dev(eval_batch.valid))
+        evaluated = {name: fn.launches - seen[name] for name, fn in counters.items()}
+        runner = TorchModelRunner(ckpt, device=dev, compute_dtype=dtype, device_normalize=True)
+        probs = runner.predict_probs(eval_batch.video, eval_batch.audio)
+        served_by = {name: fn.launches - seen[name] - evaluated[name]
+                     for name, fn in counters.items()}
+        if evaluated != forward or served_by != forward:
+            raise AssertionError(f"train {dtype}: the eval step launched {evaluated} and the "
+                                 f"runner's request {served_by}, expected {forward} each")
+        served = float(-np.log(probs[np.arange(TRAIN_BATCH), eval_batch.labels]).mean())
+        err = abs(served - float(cls_loss))
+        agree = float((probs.argmax(axis=1) == preds.cpu().numpy()).mean())
+        print(f"train {dtype}: eval loss {float(cls_loss):.6f}, the runner on the saved checkpoint "
+              f"{served:.6f} (|diff| {err:.2e}, tol {EVAL_TOL[dtype]}), same prediction on "
+              f"{agree:.2f} of the clips")
+        if probs.shape != (TRAIN_BATCH, 8) or not err <= EVAL_TOL[dtype] or (
+                dtype == "float32" and agree != 1.0):
+            raise AssertionError(f"train {dtype}: the runner disagrees with the trainer's eval step")
+        report[dtype] = {
+            "stage1_step_ms": float(np.median(times[1][TRAIN_STEPS:])),
+            "stage2_step_ms": float(np.median(times[2][TRAIN_STEPS:])),
+            "stage1_step_ms_all": times[1], "stage2_step_ms_all": times[2],
+            "stage1_losses": losses[1], "stage2_losses": losses[2],
+            "peak_memory_mib": peak, "batch": TRAIN_BATCH,
+        }
+        print(f"train {dtype}: step time, median of the last {TIMED_STEPS} of {per_stage} steps: "
+              f"stage 1 {report[dtype]['stage1_step_ms']:.1f} ms, stage 2 "
+              f"{report[dtype]['stage2_step_ms']:.1f} ms (batch {TRAIN_BATCH}), peak "
+              f"device memory {peak:.0f} MiB [{card}]")
+    print(f"train: launches over the {4 * per_stage} train steps {launches}; each eval step "
+          f"and each runner request on a saved checkpoint launched {forward}")
+
+    # Beside the main path: where a stage-2 step's time goes.
+    for dtype, (trainer, state) in trainers.items():
+        mask, lrs = trainer.trainable_mask(2), trainer.lr_tree(2, {})
+        batch = _train_batches(1, SEED + 4)
+        prof = profile_steps(lambda: trainer.run_epoch(state, batch, True, mask, lrs))
+        report[dtype]["stage2_profile"] = prof
+        if prof["device_ms"] is None:
+            print(f"train {dtype} stage 2 profile: the profiler saw no device time; not measured")
+            continue
+        print(f"train {dtype} stage 2 profile, per step: wall {prof['wall_ms']:.1f} ms, device busy "
+              f"{prof['device_ms']:.1f} ms in {prof['device_launches']:.0f} launches (idle share "
+              f"{prof['idle_share']:.2f}); K3 {prof['K3_ms']:.2f} ms, K1 {prof['K1_ms']:.2f} ms, "
+              f"K2 {prof['K2_ms']:.2f} ms")
+        for key, ms, count in prof["top"]:
+            print(f"    {ms:8.3f} ms x{count:<6g} {key}")
+    return launches, report
+
+
 def make_checkpoint(path):
     """The flagship at full width, random weights from the seed -> (config,
     uint8 video [8,8,3,112,112], int16 audio [8,1,48000])."""
@@ -391,7 +759,7 @@ def make_checkpoint(path):
     return cfg, video, audio
 
 
-def time_runners(runners, video, audio, card, rounds: int = 4, iters: int = 5):
+def time_runners(runners, video, audio, card, rounds: int = 3, iters: int = 5):
     """b1 latency and b8 clips/s of every runner, host wall time of requests
     that end in a device->host copy.  The runners take turns, in an order
     that reverses each round, so a drift of the host's pace within the run
@@ -659,6 +1027,12 @@ def main() -> int:
     launches["fused_bidirectional_xattn"], k4["against_modules"] = block_entries(
         dev, modular, video, audio)
     perf = time_runners(runners, video, audio, card)
+    del runners, fused_runners, modular
+    torch.cuda.empty_cache()
+    k1_train, k2 = check_train_kernels(dev, gen)
+    k3_train = check_k3(dev, gen, TRAIN_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_launches, train_report = train(dev, card, tmp)
 
     csrc = "multimodalemotionrecognition_torch/kernels/csrc/"
     ops = "multimodalemotionrecognition_tpu/ops/"
@@ -670,14 +1044,25 @@ def main() -> int:
         # (_block_kernel :436, _block_kernel_batched :506).
         ("fused_block", "fused_block.cu", "pallas_fused_block.py:436", k4),
         ("fused_bidirectional_xattn", "xattn.cu", "pallas_xattn.py:102", k5),
+        ("wavlm_attention_sublayer_backward", "wavlm_attn_bwd.cu", "pallas_wavlm_attn.py:191",
+         k2["bfloat16_dropout"]),
     ):
+        launches.setdefault(name, train_launches.get(name, 0))
         if launches[name] < 1:
             raise AssertionError(f"{name} was not launched on its path")
         kernels.append({"name": name, "route": "cuda", "source": csrc + source,
                         "replaces": ops + replaces, "launches": launches[name], **rep})
     kernels[0]["float32"], kernels[1]["float32"] = k1["float32"], k3["float32"]
     kernels[2]["also_replaces"] = ops + "pallas_fused_block.py:506"
-    print(json.dumps({"kernels": kernels, "serve": perf, "card": card}))
+    # `launches` of K1 and K3 is the serving path's count; the training path's beside it.
+    for entry in kernels[:2]:
+        entry["launches_train"] = train_launches[entry["name"]]
+        if entry["launches_train"] < 1:
+            raise AssertionError(f"{entry['name']} was not launched on the training path")
+    kernels[0]["train_shapes"] = k1_train
+    kernels[1]["train_shapes"] = {f"{name}_b16": rep for name, rep in k3_train.items()}
+    kernels[4]["variants"] = k2
+    print(json.dumps({"kernels": kernels, "serve": perf, "train": train_report, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

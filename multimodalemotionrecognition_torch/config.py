@@ -1,11 +1,11 @@
 """Configuration for the port.
 
 The port's own copy of what it uses from the JAX package's `config` module:
-`ModelConfig`, `ServeConfig`, `labels_for` and the ImageNet constants, with
-the same field names, defaults and environment variables, so a checkpoint's
-config dict builds either package's model.  `ServeConfig.make_mesh` (it
-builds a JAX device mesh) is left out; `AudioConfig`, `VideoConfig`,
-`DataConfig` and `TrainConfig` come with the slices that use them.
+`ModelConfig`, `TrainConfig`, `ServeConfig`, `labels_for` and the ImageNet
+constants, with the same field names, defaults and environment variables, so
+a checkpoint's config dict builds either package's model.
+`ServeConfig.make_mesh` (it builds a JAX device mesh) is left out;
+`AudioConfig`, `VideoConfig` and `DataConfig` come with the data slice.
 `WavLMConfig` is copied from the JAX package's `models/wavlm.py`: a
 checkpoint's `wavlm_geometry` dict builds either package's model.
 """
@@ -23,6 +23,7 @@ __all__ = [
     "IMAGENET_STD",
     "ModelConfig",
     "ServeConfig",
+    "TrainConfig",
     "WavLMConfig",
     "labels_for",
 ]
@@ -173,6 +174,59 @@ class ModelConfig:
         return self.audio_n_mels
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (reference src/train.py:473-672 defaults),
+    field for field the JAX package's `TrainConfig`.
+
+    `donate_buffers`, `mesh_shape`, `remat`, `rng_impl` and `flat_optimizer`
+    steer XLA (buffer donation, the device mesh, rematerialisation, the PRNG
+    implementation, the optimizer's buffer layout).  They are kept, and
+    validated as the JAX trainer validates them, so one set of settings
+    builds either trainer, and they have no effect here: PyTorch frees and
+    reuses buffers itself, the port trains on one device, and its optimizer
+    runs `torch._foreach_*` passes over the trainable leaves.
+    `grad_accum > 1`, `fusion_align_mode != "none"` and the branch warm
+    start (`audio_ckpt`, `video_ckpt`) are not ported yet: the trainer raises
+    `NotImplementedError` for them.
+    """
+
+    epochs: int = 20
+    batch_size: int = 16
+    lr: float = 1e-3
+    seed: int = 42
+    weight_decay: float = 1e-4
+    label_smoothing: float = 0.0
+    early_stopping_patience: int = 10
+    use_cosine_annealing: bool = False
+    cosine_stage2_only: bool = False
+    two_stage_training: bool = False
+    stage1_epochs: int = 5
+    audio_backbone_lr: float = 1e-5
+    video_backbone_lr: float = 1e-5
+    backbone_lr: float = 3e-5  # WavLM single-modality stage-2 backbone LR
+    wavlm_stage: int = 1
+    fusion_unfreeze_wavlm_layers: int = 2
+    fusion_unfreeze_video_blocks: int = 1
+    fusion_unfreeze_audio: bool = True
+    audio_ckpt: str = ""
+    video_ckpt: str = ""
+    output_dir: str = "outputs"
+    wandb: bool = False
+    donate_buffers: bool = True
+    # Video wire format between the host loader and the step: "uint8" ships
+    # post-blur uint8 pixels and per-sample (brightness, noise sigma) scalars
+    # and replays the float augmentation tail on the device; "float32" ships
+    # host-augmented normalised frames.  The step takes either, by the
+    # batch's dtype.
+    video_wire: str = "auto"
+    mesh_shape: Optional[Tuple[int, ...]] = None
+    remat: object = False
+    grad_accum: int = 1
+    rng_impl: str = "auto"
+    flat_optimizer: str = "auto"
+
+
 def _env(name: str, default: str) -> str:
     return os.environ.get(name, default)
 
@@ -265,8 +319,12 @@ class WavLMConfig:
     (`kernels/wavlm_attn.py`, `kernels/conv_fe.py`): "auto" runs them when
     the activations are on CUDA and the modular PyTorch path otherwise; True
     always goes through the kernel wrapper (which runs the kernel's plain
-    PyTorch version for CPU tensors); False is the modular path.  The train
-    fields are kept for config compatibility; the port serves only (eval).
+    PyTorch version for CPU tensors); False is the modular path.  In a
+    train-mode forward the first `fused_train_layers` encoder layers take
+    the attention kernel (K1 with its in-kernel dropouts, K2 as its
+    backward), and the conv kernel runs only when `fused_train_conv` says
+    the feature extractor is frozen (it has no backward); the trainer sets
+    both from the freeze policy.
     """
 
     hidden_size: int = 768

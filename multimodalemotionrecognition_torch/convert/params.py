@@ -17,6 +17,12 @@ torch state-dict path, so the walk is mechanical:
 plus a zero `num_batches_tracked` beside each BatchNorm's running stats.
 `state_dict_key` is the key map alone, e.g. to hold the JAX runner's int8
 leaves and scales against the port's quantised modules.
+
+Training state crosses the same way: the `batch_stats` collection becomes
+the running statistics above, and `adam_moments_to_state_dict` lays the
+moments of an `optax.ScaleByAdamState` (trees shaped like the parameters)
+out under the parameters' state-dict keys, so both trainers can start a
+step from the same state.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["flax_params_to_state_dict", "state_dict_key"]
+__all__ = ["adam_moments_to_state_dict", "flax_params_to_state_dict", "state_dict_key"]
 
 _BATCH_STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 _LEAF_NAMES = {
@@ -69,3 +75,12 @@ def flax_params_to_state_dict(
     for mod in bn_modules:
         out[f"{mod}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
     return out
+
+
+def adam_moments_to_state_dict(
+    flat: Mapping[Tuple[str, ...], np.ndarray],
+) -> Dict[str, torch.Tensor]:
+    """One moment tree of an `optax.ScaleByAdamState` (`mu` or `nu`), as
+    `flatten_dict` gives it (module path, leaf; no collection), -> tensors
+    under the parameters' state-dict keys, laid out like the parameters."""
+    return flax_params_to_state_dict({("params", *path): leaf for path, leaf in flat.items()})

@@ -13,7 +13,11 @@ from multimodalemotionrecognition_torch.kernels.fused_block import (
     fused_block_plain,
 )
 from multimodalemotionrecognition_torch.kernels.wavlm_attn import (
+    hash_keep_plain,
     wavlm_attention_sublayer,
+    wavlm_attention_sublayer_backward,
+    wavlm_attention_sublayer_backward_plain,
+    wavlm_attention_sublayer_forward,
     wavlm_attention_sublayer_plain,
 )
 from multimodalemotionrecognition_torch.kernels.xattn import (
@@ -34,7 +38,11 @@ __all__ = [
     "fused_block_plain",
     "fused_conv_layer",
     "fused_conv_layer_plain",
+    "hash_keep_plain",
     "wavlm_attention_sublayer",
+    "wavlm_attention_sublayer_backward",
+    "wavlm_attention_sublayer_backward_plain",
+    "wavlm_attention_sublayer_forward",
     "wavlm_attention_sublayer_plain",
     "xattn_params_from_state_dict",
 ]

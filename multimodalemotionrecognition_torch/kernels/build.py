@@ -44,12 +44,19 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+# seed, attention threshold and 1/keep, hidden threshold and 1/keep
+_DROPOUT = [_I, ctypes.c_uint, _F, ctypes.c_uint, _F]
 # C entry points: name -> argtypes (every function returns a cudaError_t).
 _SIGNATURES = {
     # hidden, q, k, v, gate, bias, wo, bo, lns, lnb, ctx, proj, out,
-    # B, Tp, seq_len, E, H, eps, stream
-    "emo_wavlm_attn_f32": [_P] * 13 + [_I] * 5 + [ctypes.c_float, _P],
-    "emo_wavlm_attn_bf16": [_P] * 13 + [_I] * 5 + [ctypes.c_float, _P],
+    # B, Tp, seq_len, E, H, eps, then the dropout, then the stream
+    "emo_wavlm_attn_f32": [_P] * 13 + [_I] * 5 + [_F] + _DROPOUT + [_P],
+    "emo_wavlm_attn_bf16": [_P] * 13 + [_I] * 5 + [_F] + _DROPOUT + [_P],
+    # dout, q, k, v, gate, bias, wo, lns, ctx, proj; the ten gradients; seven
+    # scratch buffers; B, Tp, seq_len, E, H, col_chunks, eps, dropout, stream
+    "emo_wavlm_attn_bwd_f32": [_P] * 27 + [_I] * 6 + [_F] + _DROPOUT + [_P],
+    "emo_wavlm_attn_bwd_bf16": [_P] * 27 + [_I] * 6 + [_F] + _DROPOUT + [_P],
     # y, w, out, B, rows, t_in, k, stride, cin, cout, gelu_in, gelu_out, stream
     "emo_conv_fe_f32": [_P] * 3 + [_I] * 9 + [_P],
     "emo_conv_fe_bf16": [_P] * 3 + [_I] * 9 + [_P],

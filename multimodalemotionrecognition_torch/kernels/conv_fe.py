@@ -17,6 +17,10 @@ are unspecified.
 For a CPU tensor the wrapper runs `fused_conv_layer_plain`, the same
 function in plain PyTorch.  For a CUDA tensor it launches the kernel or
 raises.  `fused_conv_layer.launches` counts kernel launches.
+
+The kernel has no backward (neither has the TPU kernel): the wrapper raises
+when a gradient is asked through it, so training runs it only on a frozen
+feature extractor.
 """
 
 from __future__ import annotations
@@ -85,6 +89,11 @@ def fused_conv_layer(
         raise ValueError(f"w_flat on {w_flat.device}, y on {y.device}")
     if not (y.is_contiguous() and w_flat.is_contiguous()):
         raise ValueError("y and w_flat must be contiguous")
+    if torch.is_grad_enabled() and (y.requires_grad or w_flat.requires_grad):
+        raise RuntimeError(
+            "fused_conv_layer has no backward: freeze the conv feature extractor "
+            "(or call it under torch.no_grad()) or use the modular conv path"
+        )
     if y.device.type == "cpu":
         return fused_conv_layer_plain(
             y, w_flat, k, stride, cin, gelu_input, gelu_output, t_in

@@ -38,4 +38,29 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Stateless keep mask of the train-time dropouts, bit for bit the JAX
+// package's `_hash_keep`: two murmur3 finalizer rounds over (element index ^
+// stream base), all in arithmetic that wraps mod 2^32; an element is kept iff
+// the hash is >= threshold = min(round(rate * 2^32), 2^32 - 1).
+__device__ __forceinline__ bool hash_keep(unsigned base, unsigned index, unsigned threshold) {
+  unsigned x = index ^ base;
+  x = (x ^ (x >> 16)) * 0x85EBCA6Bu;
+  x = (x ^ (x >> 13)) * 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x >= threshold;
+}
+
+// Stream bases: one per batch element, then one per head for the attention
+// probabilities (index space Tp x Tp) and one for the projected output
+// (index space Tp x E).
+__device__ __forceinline__ unsigned dropout_stream(unsigned seed, int b) {
+  return seed + static_cast<unsigned>(b) * 0x632BE59Bu;
+}
+__device__ __forceinline__ unsigned attn_stream(unsigned seed, int b, int h) {
+  return dropout_stream(seed, b) + static_cast<unsigned>(h + 1) * 0x9E3779B9u;
+}
+__device__ __forceinline__ unsigned hidden_stream(unsigned seed, int b) {
+  return dropout_stream(seed, b) + 0x7FEB352Du;
+}
+
 }  // namespace emo

@@ -35,8 +35,16 @@
 // All use CUDA-core FMAs in float32: simple and right first; tensor cores
 // (wgmma) and fewer launches are later work.
 //
-// Rows >= seq_len are neither computed nor written.  The dropout of the TPU
-// kernel (training only) is not here: the wrapper refuses a rate above 0.
+// Rows >= seq_len are neither computed nor written.
+//
+// Training: both dropouts of the TPU kernel run in the kernel, from the same
+// stateless hash (`emo::hash_keep`), so the backward (`wavlm_attn_bwd.cu`)
+// regenerates the masks instead of reading them.  The probabilities are
+// dropped in (a), in float32, before they are rounded to the compute dtype;
+// the projected output in (b)'s epilogue, after + b_o and before the
+// residual.  A threshold of 0 means no dropout.  The attention mask's index
+// stride is the padded Tp, as in the TPU kernel.  The backward also reads
+// the two scratch buffers: ctx and the pre-LayerNorm rows.
 
 #include "common.cuh"
 
@@ -62,7 +70,8 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
 wavlm_attn_core(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const float* __restrict__ gate,
                 const float* __restrict__ bias, T* __restrict__ ctx, int Tp,
-                int seq_len, int E, int H) {
+                int seq_len, int E, int H, unsigned seed, unsigned attn_thr,
+                float attn_inv) {
   extern __shared__ float smem[];
   const int dh = E / H;
   const int ks_stride = dh + 1;
@@ -112,12 +121,18 @@ wavlm_attn_core(const T* __restrict__ q, const T* __restrict__ k,
     }
     l = emo::warp_sum(l);
     const float inv = 1.f / l;
+    const unsigned stream = emo::attn_stream(seed, b, h);
+    for (int j = lane; j < seq_len; j += 32) {
+      float p = ps[j] * inv;
+      if (attn_thr)
+        p = emo::hash_keep(stream, (unsigned)(i * Tp + j), attn_thr) ? p * attn_inv : 0.f;
+      ps[j] = round_to<T>(p);
+    }
     __syncwarp();
 
     for (int d = lane; d < dh; d += 32) {
       float acc = 0.f;
-      for (int j = 0; j < seq_len; ++j)
-        acc = fmaf(round_to<T>(ps[j] * inv), Vs[j * dh + d], acc);
+      for (int j = 0; j < seq_len; ++j) acc = fmaf(ps[j], Vs[j * dh + d], acc);
       ctx[row + d] = from_f<T>(acc);
     }
     __syncwarp();  // qs / ps are rewritten for the warp's next row
@@ -128,7 +143,8 @@ template <typename T>
 __global__ void __launch_bounds__(kGemmThreads)
 wavlm_attn_out_proj(const T* __restrict__ ctx, const T* __restrict__ hidden,
                     const T* __restrict__ wo, const float* __restrict__ bo,
-                    float* __restrict__ proj, int M, int Tp, int seq_len, int E) {
+                    float* __restrict__ proj, int M, int Tp, int seq_len, int E,
+                    unsigned seed, unsigned hid_thr, float hid_inv) {
   __shared__ float As[kBK][kBM + 4];
   __shared__ float Bs[kBK][kBN];
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
@@ -176,11 +192,15 @@ wavlm_attn_out_proj(const T* __restrict__ ctx, const T* __restrict__ hidden,
   for (int i = 0; i < 4; ++i) {
     const int row = m0 + ty * 4 + i;
     if (!row_valid(row, M, Tp, seq_len)) continue;
+    const unsigned stream = emo::hidden_stream(seed, row / Tp);
+    const unsigned index0 = (unsigned)(row % Tp) * (unsigned)E;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx * 4 + j;
-      if (n < E)
-        proj[(size_t)row * E + n] = acc[i][j] + bo[n] + to_f(hidden[(size_t)row * E + n]);
+      if (n >= E) continue;
+      float val = acc[i][j] + bo[n];
+      if (hid_thr) val = emo::hash_keep(stream, index0 + n, hid_thr) ? val * hid_inv : 0.f;
+      proj[(size_t)row * E + n] = val + to_f(hidden[(size_t)row * E + n]);
     }
   }
 }
@@ -221,7 +241,9 @@ template <typename T>
 int launch(const void* hidden, const void* q, const void* k, const void* v,
            const void* gate, const void* bias, const void* wo, const void* bo,
            const void* lns, const void* lnb, void* ctx, void* proj, void* out,
-           int B, int Tp, int seq_len, int E, int H, float eps, void* stream_ptr) {
+           int B, int Tp, int seq_len, int E, int H, float eps, int seed,
+           unsigned attn_thr, float attn_inv, unsigned hid_thr, float hid_inv,
+           void* stream_ptr) {
   if (B < 1 || H < 1 || E % H != 0 || seq_len < 1 || seq_len > Tp ||
       E > 32 * kLnMaxPerLane)
     return cudaErrorInvalidValue;
@@ -238,7 +260,7 @@ int launch(const void* hidden, const void* q, const void* k, const void* v,
   wavlm_attn_core<T><<<grid_a, kAttnWarps * 32, smem_a, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(gate), static_cast<const float*>(bias),
-      static_cast<T*>(ctx), Tp, seq_len, E, H);
+      static_cast<T*>(ctx), Tp, seq_len, E, H, (unsigned)seed, attn_thr, attn_inv);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -247,7 +269,7 @@ int launch(const void* hidden, const void* q, const void* k, const void* v,
   wavlm_attn_out_proj<T><<<grid_b, kGemmThreads, 0, stream>>>(
       static_cast<const T*>(ctx), static_cast<const T*>(hidden),
       static_cast<const T*>(wo), static_cast<const float*>(bo),
-      static_cast<float*>(proj), M, Tp, seq_len, E);
+      static_cast<float*>(proj), M, Tp, seq_len, E, (unsigned)seed, hid_thr, hid_inv);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -265,9 +287,11 @@ int launch(const void* hidden, const void* q, const void* k, const void* v,
                       const void* wo, const void* bo, const void* lns,         \
                       const void* lnb, void* ctx, void* proj, void* out,       \
                       int B, int Tp, int seq_len, int E, int H, float eps,     \
-                      void* stream) {                                          \
+                      int seed, unsigned attn_thr, float attn_inv,             \
+                      unsigned hid_thr, float hid_inv, void* stream) {         \
     return launch<T>(hidden, q, k, v, gate, bias, wo, bo, lns, lnb, ctx, proj, \
-                     out, B, Tp, seq_len, E, H, eps, stream);                  \
+                     out, B, Tp, seq_len, E, H, eps, seed, attn_thr, attn_inv, \
+                     hid_thr, hid_inv, stream);                                \
   }
 
 EMO_WAVLM_ATTN_ENTRY(emo_wavlm_attn_f32, float)

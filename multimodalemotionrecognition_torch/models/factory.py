@@ -1,7 +1,7 @@
 """Model factory: ModelConfig -> the port's module graph, with seeded init.
 
-Counterpart of the JAX package's `models/factory.py`.  Only the serving
-slice is ported: `fusion` in {xattn, xattn_concat, xattn_gated} with
+Counterpart of the JAX package's `models/factory.py`.  Only the flagship
+family is ported: `fusion` in {xattn, xattn_concat, xattn_gated} with
 `use_wavlm=True`.  Anything else raises `NotImplementedError`.
 """
 
@@ -49,16 +49,20 @@ def build_model(
     device: torch.device | str = "cpu",
     generator: Optional[torch.Generator] = None,
 ) -> FusionModel:
-    """Build the eval-mode float32 model on `device`, initialised from
-    `generator` (a fresh one seeded with 0 when None)."""
+    """Build the float32 model on `device`, initialised from `generator` (a
+    fresh one seeded with 0 when None).  Train or eval is an argument of the
+    forward, not a state of the modules."""
     if config.canonical_fusion != "xattn" or not config.use_wavlm:
         raise NotImplementedError(
             f"fusion={config.fusion!r} use_wavlm={config.use_wavlm} is not ported: "
-            "the port serves xattn + WavLM only (ROADMAP queue 1, item 5)"
+            "the port has xattn + WavLM only (ROADMAP queue 1, item 5)"
         )
     if config.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"Unsupported compute dtype: {config.compute_dtype}")
-    wavlm_config = WavLMConfig(**(config.wavlm_geometry or {}))
+    geometry = dict(config.wavlm_geometry or {})
+    geometry.setdefault("fused_train_layers", config.wavlm_fused_train_layers)
+    geometry.setdefault("fused_train_conv", config.wavlm_fused_train_conv)
+    wavlm_config = WavLMConfig(**geometry)
     # Built on the meta device so no memory is written twice: the module
     # constructors' own init would draw from torch's global generator.
     with torch.device("meta"):
@@ -72,6 +76,8 @@ def build_model(
             num_heads=config.xattn_heads,
             temporal_pooling=config.temporal_pooling,
             temporal_dropout=config.temporal_dropout,
+            xattn_attn_dropout=config.xattn_attn_dropout,
+            xattn_stochastic_depth=config.xattn_stochastic_depth,
             xattn_use_emotion_prior=config.xattn_use_emotion_prior,
             xattn_emotion_prior_dim=config.xattn_emotion_prior_dim,
             xattn_emotion_prior_hidden_dim=config.xattn_emotion_prior_hidden_dim,

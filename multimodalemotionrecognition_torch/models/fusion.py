@@ -1,4 +1,4 @@
-"""Bidirectional cross-attention fusion (the xattn mode), eval forward.
+"""Bidirectional cross-attention fusion (the xattn mode), eval and train forward.
 
 Counterpart of the xattn branch of the JAX package's `models/fusion.py`
 (reference `src/models/fusion.py:187-437`) and of its
@@ -9,6 +9,13 @@ Counterpart of the xattn branch of the JAX package's `models/fusion.py`
   * the concat head is `xattn_mlp` (Linear, ReLU, Dropout, Linear); the
     gated head computes g*video + (1-g)*audio with `xattn_gate` and
     `xattn_classifier`.
+
+Training (`forward(..., train=True, rng=RngStreams)`): dropout on both
+attentions' probabilities, stochastic depth (`drop_path`) on both residual
+branches, dropout 0.2 in the head and gate MLPs, the emotion prior's and the
+attention pooler's dropouts, and `train` handed down to both towers.  The
+`nn.Dropout` entries of the `nn.Sequential`s only keep the state-dict
+indices: every draw goes through `ops/stochastic.py` with a named generator.
 
 The late/concat/gated modes and `ClipStyleAlignment` are not ported yet.
 """
@@ -22,8 +29,19 @@ from torch import nn
 
 from multimodalemotionrecognition_torch.models.temporal import TemporalPooler
 from multimodalemotionrecognition_torch.ops.attention import TorchMultiHeadAttention
+from multimodalemotionrecognition_torch.ops.stochastic import RngStreams, drop_path, dropout
 
 __all__ = ["EmotionPriorBiasAdapter", "FusionModel"]
+
+
+def _mlp(seq: nn.Sequential, x: torch.Tensor, rate: float,
+         generator: Optional[torch.Generator]) -> torch.Tensor:
+    """(Linear, ReLU, Dropout, Linear) with the dropout drawn from `generator`
+    (None: eval, no dropout)."""
+    x = torch.relu(seq[0](x))
+    if generator is not None:
+        x = dropout(x, rate, generator)
+    return seq[3](x)
 
 
 class EmotionPriorBiasAdapter(nn.Module):
@@ -34,6 +52,7 @@ class EmotionPriorBiasAdapter(nn.Module):
     def __init__(self, token_dim: int, prior_dim: int, hidden_dim: int, dropout: float = 0.1):
         super().__init__()
         self.prior_dim = prior_dim
+        self.dropout = dropout
         self.prior_net = nn.Sequential(
             nn.Linear(2 * token_dim, hidden_dim),
             nn.ReLU(),
@@ -47,10 +66,13 @@ class EmotionPriorBiasAdapter(nn.Module):
         self.bias_scale = nn.Parameter(torch.ones(()))
 
     def forward(
-        self, video_tokens: torch.Tensor, audio_tokens: torch.Tensor
+        self, video_tokens: torch.Tensor, audio_tokens: torch.Tensor,
+        dropout_generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        prior = self.prior_net(
-            torch.cat([video_tokens.mean(dim=1), audio_tokens.mean(dim=1)], dim=-1)
+        prior = _mlp(
+            self.prior_net,
+            torch.cat([video_tokens.mean(dim=1), audio_tokens.mean(dim=1)], dim=-1),
+            self.dropout, dropout_generator,
         )
 
         def token_bias(query, key, q_lin, k_lin):
@@ -80,6 +102,8 @@ class FusionModel(nn.Module):
         num_heads: int = 4,
         temporal_pooling: str = "mean",
         temporal_dropout: float = 0.1,
+        xattn_attn_dropout: float = 0.1,
+        xattn_stochastic_depth: float = 0.1,
         xattn_use_emotion_prior: bool = False,
         xattn_emotion_prior_dim: int = 8,
         xattn_emotion_prior_hidden_dim: int = 64,
@@ -91,6 +115,7 @@ class FusionModel(nn.Module):
         self.audio_model = audio_model
         self.video_model = video_model
         self.xattn_head = xattn_head
+        self.xattn_stochastic_depth = xattn_stochastic_depth
         d = d_model
         self.v_in_proj = nn.Linear(video_model.embedding_dim, d)
         self.audio_seq_proj = nn.Linear(audio_model.sequence_dim, d)
@@ -101,9 +126,9 @@ class FusionModel(nn.Module):
                 d, xattn_emotion_prior_dim, xattn_emotion_prior_hidden_dim,
                 xattn_emotion_prior_dropout,
             )
-        self.v2a_attn = TorchMultiHeadAttention(d, num_heads)
+        self.v2a_attn = TorchMultiHeadAttention(d, num_heads, xattn_attn_dropout)
         self.v_norm = nn.LayerNorm(d, eps=1e-5)
-        self.a2v_attn = TorchMultiHeadAttention(d, num_heads)
+        self.a2v_attn = TorchMultiHeadAttention(d, num_heads, xattn_attn_dropout)
         self.a_norm = nn.LayerNorm(d, eps=1e-5)
         self.v_temporal_pool = TemporalPooler(d, temporal_pooling, temporal_dropout)
         self.a_temporal_pool = TemporalPooler(d, temporal_pooling, temporal_dropout)
@@ -118,21 +143,34 @@ class FusionModel(nn.Module):
             )
             self.xattn_classifier = nn.Linear(d, num_classes)
 
-    def forward(self, video: torch.Tensor, audio: torch.Tensor) -> torch.Tensor:
-        v = self.v_in_proj(self.video_model.encode_frames(video))
-        a = self.a_in_proj(self.audio_seq_proj(self.audio_model.encode_sequence(audio)))
+    def forward(
+        self, video: torch.Tensor, audio: torch.Tensor, train: bool = False,
+        rng: Optional[RngStreams] = None,
+    ) -> torch.Tensor:
+        if train and rng is None:
+            raise ValueError("a train-mode forward needs rng (RngStreams)")
+        gen = rng.device("dropout") if train else None
+        path_gen = rng.device("droppath") if train else None
+        depth = self.xattn_stochastic_depth
+
+        v = self.v_in_proj(self.video_model.encode_frames(video, train))
+        a = self.a_in_proj(
+            self.audio_seq_proj(self.audio_model.encode_sequence(audio, train, rng))
+        )
 
         v2a_bias = a2v_bias = None
         if self.emotion_prior_bias is not None:
-            _, v2a_bias, a2v_bias = self.emotion_prior_bias(v, a)
+            _, v2a_bias, a2v_bias = self.emotion_prior_bias(v, a, gen)
 
-        v = self.v_norm(v + self.v2a_attn(v, a, a, bias=v2a_bias))
-        a = self.a_norm(a + self.a2v_attn(a, v, v, bias=a2v_bias))
+        v2 = self.v2a_attn(v, a, a, bias=v2a_bias, dropout_generator=gen)
+        v = self.v_norm(v + drop_path(v2, depth, train, path_gen))
+        a2 = self.a2v_attn(a, v, v, bias=a2v_bias, dropout_generator=gen)
+        a = self.a_norm(a + drop_path(a2, depth, train, path_gen))
 
-        v_emb = self.v_temporal_pool(v)
-        a_emb = self.a_temporal_pool(a)
+        v_emb = self.v_temporal_pool(v, gen)
+        a_emb = self.a_temporal_pool(a, gen)
         both = torch.cat([v_emb, a_emb], dim=1)
         if self.xattn_head == "concat":
-            return self.xattn_mlp(both)
-        gate = torch.sigmoid(self.xattn_gate(both))
+            return _mlp(self.xattn_mlp, both, 0.2, gen)
+        gate = torch.sigmoid(_mlp(self.xattn_gate, both, 0.2, gen))
         return self.xattn_classifier(gate * v_emb + (1.0 - gate) * a_emb)

@@ -9,8 +9,12 @@ The transformer pooler is not ported yet.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
+
+from multimodalemotionrecognition_torch.ops.stochastic import dropout
 
 __all__ = ["TemporalAttentionPooling", "TemporalPooler"]
 
@@ -22,6 +26,7 @@ class TemporalAttentionPooling(nn.Module):
     def __init__(self, dim: int, dropout: float = 0.1):
         super().__init__()
         hidden = max(1, dim // 2)
+        self.dropout = dropout
         self.score = nn.Sequential(
             nn.LayerNorm(dim, eps=1e-5),
             nn.Linear(dim, hidden),
@@ -30,8 +35,15 @@ class TemporalAttentionPooling(nn.Module):
             nn.Linear(hidden, 1),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        attn = torch.softmax(self.score(x).squeeze(-1).float(), dim=1)
+    def forward(
+        self, x: torch.Tensor, dropout_generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        """A generator turns the dropout after the GELU on (training; the
+        `nn.Dropout` at index 3 only keeps the state-dict indices)."""
+        s = self.score[2](self.score[1](self.score[0](x)))
+        if dropout_generator is not None:
+            s = dropout(s, self.dropout, dropout_generator)
+        attn = torch.softmax(self.score[4](s).squeeze(-1).float(), dim=1)
         return torch.sum(x * attn.to(x.dtype)[..., None], dim=1)
 
 
@@ -50,9 +62,11 @@ class TemporalPooler(nn.Module):
         if mode == "attn":
             self.pool = TemporalAttentionPooling(dim, dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, dropout_generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
         if x.ndim != 3:
             raise ValueError(f"TemporalPooler expects [B, T, D], got shape={tuple(x.shape)}")
         if self.mode == "mean":
             return x.mean(dim=1)
-        return self.pool(x)
+        return self.pool(x, dropout_generator)

@@ -23,9 +23,10 @@ class VideoNet(nn.Module):
         super().__init__()
         self.backbone = ResNet18Backbone()
 
-    def encode_frames(self, x: torch.Tensor) -> torch.Tensor:
+    def encode_frames(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """[B, T, 3, H, W] -> per-frame features [B, T, 512]; frames are
-        folded into the batch for one backbone pass."""
+        folded into the batch for one backbone pass.  `train` puts every
+        BatchNorm in batch-statistics mode (`models/resnet.py`)."""
         b, t, c, h, w = x.shape
-        feats = self.backbone(x.reshape(b * t, c, h, w))
+        feats = self.backbone(x.reshape(b * t, c, h, w), train)
         return feats.view(b, t, self.embedding_dim)

@@ -1,4 +1,4 @@
-"""WavLM-base speech encoder, eval forward.
+"""WavLM-base speech encoder, eval and train forward.
 
 Counterpart of the JAX package's `models/wavlm.py` (HF `WavLMModel`): a
 7-layer conv feature extractor (GroupNorm on the first layer), feature
@@ -6,15 +6,26 @@ projection, a weight-normed positional conv (merged into a plain weight at
 load), and post-norm transformer layers with WavLM's gated relative
 position bias.  Module paths are the HF/reference state-dict keys.
 
-Two hand-written kernels sit on this path, chosen by
+Hand-written kernels sit on this path, chosen by
 `WavLMConfig.fused_attention` / `fused_conv` ("auto": when the activations
 are on CUDA):
 
   * K1 `kernels/wavlm_attn.py` runs each encoder layer's attention sublayer
     after the q/k/v projections (scores + gated bias, softmax, context,
-    out-projection, residual, post-LayerNorm); its constant operands are
-    made once by `cache_kernel_operands` (from an int8 out-projection too);
+    out-projection, residual, post-LayerNorm); when serving, its constant
+    operands are made once by `cache_kernel_operands` (from an int8
+    out-projection too);
+  * K2, its backward, through the same wrapper's `autograd.Function`;
   * K3 `kernels/conv_fe.py` runs conv layers L1..L6 with their GELU.
+
+Training (`forward(..., train=True, rng=RngStreams)`): the feature
+projection, encoder, activation and hidden dropouts, span masking with the
+learned `masked_spec_embed`, and batch-level LayerDrop (one host draw per
+layer above 0 per step; a dropped layer is skipped outright, which is the
+same function as computing it and keeping the input).  The first
+`fused_train_layers` layers take K1 with its two in-kernel dropouts, seeded
+per layer call from the host side of the "dropout" stream; K3 runs only
+when `fused_train_conv` says the feature extractor is frozen.
 
 L0 (k=10, stride 5, one input channel) and its GroupNorm stay `F.conv1d`
 plus float32 statistics, as they were plain XLA in the JAX package.  The
@@ -38,6 +49,7 @@ from multimodalemotionrecognition_torch.kernels.conv_fe import fused_conv_layer
 from multimodalemotionrecognition_torch.kernels.wavlm_attn import (
     wavlm_attention_sublayer,
 )
+from multimodalemotionrecognition_torch.ops.stochastic import RngStreams, dropout
 
 __all__ = ["WavLMAudioEncoder", "WavLMAttentionSelf", "WavLMEncoderLayer", "WavLMModel"]
 
@@ -114,8 +126,12 @@ class WavLMAttentionSelf(nn.Module):
         q = self.q_proj(hidden) * (dh**-0.5)
         return q, self.k_proj(hidden), self.v_proj(hidden), gate
 
-    def forward(self, hidden: torch.Tensor, position_bias: torch.Tensor) -> torch.Tensor:
-        """Modular path: -> attention output [B, T, E] (before the residual)."""
+    def forward(
+        self, hidden: torch.Tensor, position_bias: torch.Tensor,
+        dropout_generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """Modular path: -> attention output [B, T, E] (before the residual).
+        A generator turns the attention-probability dropout on (training)."""
         b, t, e = hidden.shape
         h = self.num_heads
         dh = e // h
@@ -127,6 +143,8 @@ class WavLMAttentionSelf(nn.Module):
         scores = torch.matmul(heads(q).float(), heads(k).float().transpose(-1, -2))
         scores = scores + (gate * position_bias[None].to(gate.dtype)).float()
         attn = torch.softmax(scores, dim=-1).to(v.dtype)
+        if dropout_generator is not None:
+            attn = dropout(attn, self.config.attention_dropout, dropout_generator)
         out = torch.matmul(attn, heads(v)).transpose(1, 2).reshape(b, t, e)
         return self.out_proj(out)
 
@@ -134,11 +152,18 @@ class WavLMAttentionSelf(nn.Module):
 class _FeedForward(nn.Module):
     def __init__(self, config: WavLMConfig):
         super().__init__()
+        self.config = config
         self.intermediate_dense = nn.Linear(config.hidden_size, config.intermediate_size)
         self.output_dense = nn.Linear(config.intermediate_size, config.hidden_size)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.output_dense(F.gelu(self.intermediate_dense(x)))
+    def forward(
+        self, x: torch.Tensor, dropout_generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        x = F.gelu(self.intermediate_dense(x))
+        if dropout_generator is None:
+            return self.output_dense(x)
+        x = dropout(x, self.config.activation_dropout, dropout_generator)
+        return dropout(self.output_dense(x), self.config.hidden_dropout, dropout_generator)
 
 
 class WavLMEncoderLayer(nn.Module):
@@ -169,8 +194,10 @@ class WavLMEncoderLayer(nn.Module):
 
     def cache_kernel_operands(self) -> None:
         """Make K1's constant operands once, after the weights are loaded
-        and cast, instead of on every forward.  Moving or casting the
-        module afterwards drops the cache."""
+        and cast, instead of on every forward: for serving, where the
+        weights no longer change.  Moving or casting the module afterwards
+        drops the cache; a train-mode forward, or one that records a
+        gradient for these weights, never reads it."""
         with torch.no_grad():
             self._k1_operands = self._make_k1_operands()
 
@@ -178,28 +205,62 @@ class WavLMEncoderLayer(nn.Module):
         self._k1_operands = None  # made for one device and dtype
         return super()._apply(fn, recurse)
 
+    def _k1_operands_for(self, train: bool):
+        """The cached operands when they cannot be stale: not in a train-mode
+        forward and not while autograd records these weights."""
+        weights = (self.attention.out_proj.weight, self.attention.out_proj.bias,
+                   self.layer_norm.weight, self.layer_norm.bias)
+        live = train or (torch.is_grad_enabled() and any(w.requires_grad for w in weights))
+        if live or self._k1_operands is None:
+            return self._make_k1_operands()
+        return self._k1_operands
+
     def forward(
-        self, hidden: torch.Tensor, position_bias: Optional[torch.Tensor]
+        self,
+        hidden: torch.Tensor,
+        position_bias: Optional[torch.Tensor],
+        train: bool = False,
+        rng: Optional[RngStreams] = None,
+        fused: Optional[bool] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`fused` None: by `config.fused_attention` (standalone use; the
+        model passes it explicitly).  `train` needs `rng`."""
+        cfg = self.config
         b, t, e = hidden.shape
+        if train and rng is None:
+            raise ValueError("a train-mode forward needs rng (RngStreams)")
+        gen = rng.device("dropout") if train else None
         if position_bias is None:
             position_bias = self.attention.relative_position_bias(t, hidden.device)
-        if _use_kernel(self.config.fused_attention, hidden):
+        if fused is None:
+            fused = _use_kernel(cfg.fused_attention, hidden)
+        if fused:
             attn = self.attention
             q, k, v, gate = attn.projections(hidden)
             h = attn.num_heads
+            # Training: the modular sublayer's two dropout sites (attention
+            # probabilities, projected output) run inside the kernel.
+            attn_p = cfg.attention_dropout if train else 0.0
+            hid_p = cfg.hidden_dropout if train else 0.0
+            seed = rng.kernel_seed("dropout") if attn_p > 0.0 or hid_p > 0.0 else None
             hidden = wavlm_attention_sublayer(
                 hidden, q, k, v,
                 gate.float().reshape(b, h * t, 1),
                 position_bias.float().reshape(h * t, t),
-                *(self._k1_operands or self._make_k1_operands()),
+                *self._k1_operands_for(train),
                 num_heads=h,
                 seq_len=t,
-                eps=self.config.layer_norm_eps,
+                eps=cfg.layer_norm_eps,
+                attn_dropout=attn_p,
+                hidden_dropout=hid_p,
+                dropout_seed=seed,
             )
         else:
-            hidden = self.layer_norm(hidden + self.attention(hidden, position_bias))
-        hidden = self.final_layer_norm(hidden + self.feed_forward(hidden))
+            attn_out = self.attention(hidden, position_bias, gen)
+            if train:
+                attn_out = dropout(attn_out, cfg.hidden_dropout, gen)
+            hidden = self.layer_norm(hidden + attn_out)
+        hidden = self.final_layer_norm(hidden + self.feed_forward(hidden, gen))
         return hidden, position_bias
 
 
@@ -272,9 +333,12 @@ class WavLMModel(nn.Module):
         self.feature_projection = _FeatureProjection(config)
         self.masked_spec_embed = nn.Parameter(torch.empty(config.hidden_size))
         self.encoder = _Encoder(config)
+        self.layers_run: list = []  # indices of the layers the last forward ran (LayerDrop)
 
-    def _conv_features(self, wav: torch.Tensor) -> torch.Tensor:
-        """[B, T_samples] -> conv features [B, T, C] (NWC)."""
+    def _conv_features(self, wav: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """[B, T_samples] -> conv features [B, T, C] (NWC).  In a train-mode
+        forward K3 runs only on a feature extractor declared frozen
+        (`fused_train_conv`): it has no backward."""
         cfg = self.config
         layers = self.feature_extractor.conv_layers
         l0 = layers[0]
@@ -288,7 +352,7 @@ class WavLMModel(nn.Module):
         xf = xf * l0.layer_norm.weight.float()[:, None] + l0.layer_norm.bias.float()[:, None]
         x = F.gelu(xf).to(wav.dtype)
 
-        if not _use_kernel(cfg.fused_conv, x):
+        if (train and not cfg.fused_train_conv) or not _use_kernel(cfg.fused_conv, x):
             for layer, s in zip(layers[1:], cfg.conv_stride[1:]):
                 x = F.gelu(F.conv1d(x, layer.conv.weight, stride=s))
             return x.transpose(1, 2)
@@ -312,10 +376,33 @@ class WavLMModel(nn.Module):
         for layer in self.encoder.layers:
             layer.cache_kernel_operands()
 
-    def forward(self, input_values: torch.Tensor) -> torch.Tensor:
+    def _mask_time(self, x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        """SpecAugment-style span masking along time (behavioural equivalent
+        of HF `_compute_mask_indices`): ~mask_time_prob of the positions
+        start a span of mask_time_length frames, written over with the
+        learned mask embedding."""
         cfg = self.config
-        x = self._conv_features(input_values)
+        b, t, _ = x.shape
+        starts = torch.rand(b, t, generator=generator, device=x.device) < cfg.mask_time_prob
+        window = cfg.mask_time_length
+        # Dilate the starts into spans: a max-pool over the window ending at each frame.
+        mask = F.max_pool1d(F.pad(starts.float()[:, None], (window - 1, 0)), window, stride=1)
+        return torch.where(mask[:, 0, :, None] > 0, self.masked_spec_embed.to(x.dtype), x)
+
+    def forward(
+        self, input_values: torch.Tensor, train: bool = False,
+        rng: Optional[RngStreams] = None,
+    ) -> torch.Tensor:
+        cfg = self.config
+        if train and rng is None:
+            raise ValueError("a train-mode forward needs rng (RngStreams)")
+        gen = rng.device("dropout") if train else None
+        x = self._conv_features(input_values, train)
         x = self.feature_projection.projection(self.feature_projection.layer_norm(x))
+        if train:
+            x = dropout(x, cfg.feat_proj_dropout, gen)
+            if cfg.apply_spec_augment:
+                x = self._mask_time(x, rng.device("wavlm_mask"))
 
         conv = self.encoder.pos_conv_embed.conv
         pos = conv(x.transpose(1, 2))
@@ -323,10 +410,24 @@ class WavLMModel(nn.Module):
             pos = pos[:, :, :-1]
         x = x + F.gelu(pos).transpose(1, 2)
         x = self.encoder.layer_norm(x)
+        if train:
+            x = dropout(x, cfg.hidden_dropout, gen)
 
+        # Eval takes the attention kernel in every layer; training in the
+        # first `fused_train_layers` (the trainer sets the whole stack).
+        n_layers = len(self.encoder.layers)
+        n_fused = 0
+        if _use_kernel(cfg.fused_attention, x):
+            n_fused = min(max(0, cfg.fused_train_layers), n_layers) if train else n_layers
         position_bias = None
-        for layer in self.encoder.layers:
-            x, position_bias = layer(x, position_bias)
+        self.layers_run = []
+        for i, layer in enumerate(self.encoder.layers):
+            # Batch-level LayerDrop (HF WavLMEncoder.forward): one draw per
+            # layer per step; layer 0 always runs (it owns the position bias).
+            if train and i > 0 and cfg.layerdrop > 0.0 and rng.uniform("layerdrop") < cfg.layerdrop:
+                continue
+            x, position_bias = layer(x, position_bias, train, rng, fused=i < n_fused)
+            self.layers_run.append(i)
         return x
 
 
@@ -344,8 +445,10 @@ class WavLMAudioEncoder(nn.Module):
     def sequence_dim(self) -> int:
         return self.wavlm.config.hidden_size
 
-    def encode_sequence(self, x: torch.Tensor) -> torch.Tensor:
+    def encode_sequence(
+        self, x: torch.Tensor, train: bool = False, rng: Optional[RngStreams] = None
+    ) -> torch.Tensor:
         """Raw waveform [B, 1, T] or [B, T] -> hidden states [B, T', E]."""
         if x.ndim == 3:
             x = x[:, 0, :]
-        return self.wavlm(x)
+        return self.wavlm(x, train, rng)

@@ -14,16 +14,20 @@ from typing import Optional
 import torch
 from torch import nn
 
+from multimodalemotionrecognition_torch.ops.stochastic import dropout
+
 __all__ = ["TorchMultiHeadAttention"]
 
 
 class TorchMultiHeadAttention(nn.Module):
     """batch_first MHA.  `bias` is an additive float attention bias of shape
     [B, L, S] or [B, H, L, S], added to the scaled scores like torch's
-    float attn_mask."""
+    float attn_mask.  A `dropout_generator` turns the dropout of the
+    attention probabilities (`dropout_rate`) on: training."""
 
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int, dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         if embed_dim % num_heads != 0:
             raise ValueError(
                 f"embed_dim={embed_dim} not divisible by num_heads={num_heads}"
@@ -40,6 +44,7 @@ class TorchMultiHeadAttention(nn.Module):
         key: torch.Tensor,
         value: torch.Tensor,
         bias: Optional[torch.Tensor] = None,
+        dropout_generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         e, h = self.embed_dim, self.num_heads
         dh = e // h
@@ -58,5 +63,7 @@ class TorchMultiHeadAttention(nn.Module):
                 bias = bias[:, None]
             scores = scores + bias.float()
         attn = torch.softmax(scores, dim=-1).to(v.dtype)
+        if dropout_generator is not None:
+            attn = dropout(attn, self.dropout_rate, dropout_generator)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(b, lq, e)
         return self.out_proj(out)

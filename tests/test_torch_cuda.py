@@ -19,6 +19,8 @@ from multimodalemotionrecognition_torch.kernels import (
     fused_conv_layer,
     fused_conv_layer_plain,
     wavlm_attention_sublayer,
+    wavlm_attention_sublayer_backward,
+    wavlm_attention_sublayer_backward_plain,
     wavlm_attention_sublayer_plain,
     xattn_params_from_state_dict,
 )
@@ -69,6 +71,61 @@ def test_attention_kernel_matches_plain(cuda, dtype, atol, b, tp, seq):
     assert wavlm_attention_sublayer.launches == before + 1
     err = (got[:, :seq].float() - want[:, :seq].float()).abs().max().item()
     assert err <= atol, err
+
+
+GRAD_NAMES = ("hidden", "q", "k", "v", "gate", "bias", "wo", "bo", "lns", "lnb")
+# Relative to a gradient's largest entry.  float32: another sum order.
+# bfloat16: kernel and plain version round the operands of every product to
+# bfloat16 at values a float32 rounding apart, and K2 reads K1's context
+# where the plain version recomputes it.
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("attn_p,hid_p", [(0.1, 0.1), (0.1, 0.0), (0.0, 0.1)])
+@pytest.mark.parametrize("b,tp,seq", [(16, 149, 149), (2, 160, 149), (1, 37, 37)])
+def test_attention_kernel_with_dropout_matches_plain(cuda, dtype, atol, attn_p, hid_p, b, tp, seq):
+    """Equal masks show as equal outputs: one flipped element of the hidden
+    mask moves its row by far more than the tolerance."""
+    h = 12
+    args = _sublayer_inputs(b, h, tp, dtype, cuda)
+    kw = dict(num_heads=h, seq_len=seq, attn_dropout=attn_p, hidden_dropout=hid_p,
+              dropout_seed=1234567)
+    got = wavlm_attention_sublayer(*args, **kw)
+    want = wavlm_attention_sublayer_plain(*args, **kw)
+    off = wavlm_attention_sublayer(*args, num_heads=h, seq_len=seq)
+    torch.cuda.synchronize()
+    err = (got[:, :seq].float() - want[:, :seq].float()).abs().max().item()
+    assert err <= atol, err
+    assert (got[:, :seq].float() - off[:, :seq].float()).abs().max().item() > 10 * atol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("attn_p,hid_p", [(0.0, 0.0), (0.1, 0.1)])
+@pytest.mark.parametrize("b,tp,seq", [(16, 149, 149), (2, 160, 149), (3, 37, 37)])
+def test_attention_backward_kernel_matches_plain(cuda, dtype, attn_p, hid_p, b, tp, seq):
+    h = 12
+    args = [t.requires_grad_() for t in _sublayer_inputs(b, h, tp, dtype, cuda)]
+    statics = dict(num_heads=h, seq_len=seq, attn_dropout=attn_p, hidden_dropout=hid_p,
+                   dropout_seed=7654321)
+    g = torch.Generator().manual_seed(9)
+    dout = torch.randn(b, tp, h * 64, generator=g).to(cuda, dtype)
+    dout[:, seq:] = float("nan")  # never read
+    before = wavlm_attention_sublayer_backward.launches
+    out = wavlm_attention_sublayer(*args, **statics)
+    got = torch.autograd.grad(out, args, dout)
+    want = wavlm_attention_sublayer_backward_plain(dout, *(a.detach() for a in args), **statics)
+    again = torch.autograd.grad(wavlm_attention_sublayer(*args, **statics), args, dout)
+    torch.cuda.synchronize()
+    assert wavlm_attention_sublayer_backward.launches == before + 2
+    for name, x, y, z in zip(GRAD_NAMES, got, want, again):
+        assert x.shape == y.shape and torch.isfinite(x).all(), name
+        assert x.dtype == (dtype if name in ("hidden", "q", "k", "v", "wo") else torch.float32)
+        err = (x.float() - y.float()).abs().max().item()
+        assert err <= GRAD_TOL[dtype] * y.float().abs().max().item(), (name, err)
+        assert torch.equal(x, z), f"d{name} differs between two runs"  # no atomics
+    for x in got[:4]:
+        assert torch.count_nonzero(x[:, seq:]) == 0
 
 
 @pytest.mark.parametrize(
@@ -148,8 +205,8 @@ def test_fused_block_kernel_matches_plain(
 
 def test_fused_block_kernel_matches_the_modular_model(cuda):
     model, params, spec = _fusion_block(cuda, "attn", "gated", True, int8=False)
-    model.video_model.encode_frames = lambda x: x
-    model.audio_model.encode_sequence = lambda x: x
+    model.video_model.encode_frames = lambda x, *train: x
+    model.audio_model.encode_sequence = lambda x, *train: x
     g = torch.Generator().manual_seed(4)
     v_feat = torch.randn(3, 8, 512, generator=g).abs().to(cuda)
     a_seq = torch.randn(3, 149, 768, generator=g).to(cuda)

@@ -128,8 +128,8 @@ def test_fused_block_matches_pallas_kernel(pooling, head, prior, samples_per_pro
 def test_fused_block_matches_the_modular_fusion_model(pooling, head, prior):
     """K4's plain version == the port's FusionModel on the same weights."""
     _, v, a, spec, port = _block(pooling, head, prior, seed=1)
-    port.video_model.encode_frames = lambda x: x
-    port.audio_model.encode_sequence = lambda x: x
+    port.video_model.encode_frames = lambda x, *train: x
+    port.audio_model.encode_sequence = lambda x, *train: x
     with torch.no_grad():
         want = port(torch.from_numpy(v), torch.from_numpy(a))
     pspec = FusedBlockSpec(**spec)

@@ -33,6 +33,9 @@ def test_port_imports_no_jax_or_flax():
     assert "multimodalemotionrecognition_torch.kernels.wavlm_attn" in report["modules"]
     assert "multimodalemotionrecognition_torch.kernels.fused_block" in report["modules"]
     assert "multimodalemotionrecognition_torch.runtime.fused" in report["modules"]
+    for module in ("train.trainer", "train.freeze", "utils.metrics", "utils.seed",
+                   "ops.stochastic"):
+        assert f"multimodalemotionrecognition_torch.{module}" in report["modules"]
     assert report["heavy"] == []
     # Not even the JAX package's framework-free modules: the port has its own config.
     assert report["tpu"] == []

@@ -156,8 +156,10 @@ def test_attention_wrapper_rejects_bad_inputs(change, error):
 
 
 def test_attention_wrapper_refuses_dropout():
+    """Without a seed, as the JAX wrapper does; with one it runs
+    (`tests/test_torch_train_kernels.py`)."""
     args = [torch.from_numpy(a) for a in _sublayer_inputs(6, 1, 2, 8, 8)]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="dropout_seed"):
         wavlm_attention_sublayer(*args, num_heads=2, seq_len=8, attn_dropout=0.1)
 
 
