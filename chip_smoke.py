@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port: build, check and time its kernels,
-serve the flagship model at full width through `TorchModelRunner`, and train
-it through `EmotionTrainer`.
+serve the flagship model at full width through `TorchModelRunner`, run the
+measurement entry points, serve the other model families, and train the
+flagship through `EmotionTrainer`.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
@@ -17,7 +18,11 @@ Phases (the first failure ends the run with a non-zero exit code):
                for the flagship spec and for (attn pool, gated head, prior),
                float and int8 matrices, float32 and bfloat16 tower outputs,
                one and several samples per block; K5, the attention core,
-               with and without biases.  Max error, kernel and plain times
+               with and without biases; K6, the batch-tiled attention sublayer
+               (B=128 and B=8, Tp=160, seq_len 149, E=768, bfloat16 and
+               float32) for G in {1, 2, 4, 8}: against its plain version,
+               every G against G=1 bit for bit, against K1 on the same
+               tensors, a time per G beside K1's.  Max error, kernel and plain times
                from CUDA events, the library call's time where one PyTorch
                call computes the same function (K3: conv1d + gelu), and each
                kernel's bound: the larger of its bytes over 3.35 TB/s and its
@@ -38,6 +43,21 @@ Phases (the first failure ends the run with a non-zero exit code):
                tokens, against the modular fusion modules they stand for, with
                the modules' device and host times beside K4's.
   7. timing  - b1 latency and b8 clips/s of all ten runners, taking turns.
+  7a. bench  - the measurement entry points through their normal entries:
+               `bench.attn_tile.main` (K6 per G beside K1, B=128),
+               `bench.forward.run_single` with BENCH_WAVLM=1 and 0 (batch 32)
+               and `entry.entry()`; their JSON lines, K6's launch count, and
+               12 K1 + 6 K3 launches per WavLM forward.  K1 and K3 against
+               their plain versions at these entries' batches (32 and 1), and
+               the measured WavLM forward and `entry()`'s against the same
+               weights and inputs on the plain path.
+  7b. families - xattn + mel, gated + AudioResNet18, late, concat, audio,
+               video, and xattn + WavLM with the transformer pooler, at full
+               width from checkpoints written here (random weights from the
+               seed), through `TorchModelRunner` in bf16 and f32: b1 and b8,
+               probabilities finite, rows summing to 1, varying across clips,
+               the f32 b1 answer against the same checkpoint served on the
+               CPU, b1 latency and b8 clips/s.
   8. train kernels - K1 with its two in-kernel dropouts (0.1, 0.1) and K2,
                its backward, at the training shapes (B=16, T=149, E=768), and
                K3 (L1..L6 at B=16, as phase 3 holds it at B=8), in
@@ -63,6 +83,13 @@ Phases (the first failure ends the run with a non-zero exit code):
                then two more stage-2 steps under `torch.profiler` for the
                device's busy share and the device time of K1, K2 and K3.
 
+  9a. train families - `EmotionTrainer` single-stage on gated +
+               AudioResNet18, late and audio (mel input made inside the step)
+               at full width, float32, batch 16: the eval step's loss against
+               the same seeded state on the CPU, 3 steps with finite losses,
+               every parameter and BatchNorm statistic moved, the saved
+               checkpoint through `TorchModelRunner` gives the eval loss.
+
 The line before the last two is the JSON kernel report; then the card's
 line; the last line is {"ok": true, "device": {...}}.
 """
@@ -70,7 +97,6 @@ line; the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import tempfile
 import time
@@ -85,6 +111,8 @@ REPO = Path(__file__).resolve().parent
 K1_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # abs, after the LayerNorm
 K3_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (0.0, 2e-2)}  # abs, x max|ref|
 PROBS_TOL = {"float32": 1e-3, "bfloat16": 2e-2}  # abs, kernel path vs plain path
+CPU_PROBS_TOL = 1e-3  # abs, float32 probabilities on the card (TF32 off) vs on the CPU
+BENCH_BATCH, BENCH_ITERS = 32, 10  # `bench.forward` in this script (its defaults: 128, 40)
 FUSION_TOL = 1e-4  # abs, K4 logits and K5 embeddings (float32 math, other sum order)
 FUSED_PROBS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # abs, K4 (float32 math) vs modules
 INT8_TOL = 0.05  # abs on probabilities, int8 weights vs float weights, same argmax
@@ -97,21 +125,13 @@ GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # the same modules and weights; bfloat16 the runner casts the weights once,
 # the trainer per step, and the towers round differently.
 EVAL_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
-# Per stage: 3 steps, then the stage's checks, then 8 more steps whose median
+# Per stage: 3 steps, then the stage's checks, then 6 more steps whose median
 # is the step time (the first steps of a stage pay cuDNN's algorithm choice).
-TRAIN_BATCH, TRAIN_STEPS, TIMED_STEPS = 16, 3, 8
+TRAIN_BATCH, TRAIN_STEPS, TIMED_STEPS = 16, 3, 6
 # Published H100 SXM peaks: HBM3 bytes/s; dense FLOP/s by operand type (float32
 # outside the tensor cores).
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def _plug(ms_wanted: float) -> None:
@@ -191,13 +211,15 @@ def _sublayer_inputs(dev, gen, dtype, b, t=149, e=768, h=12):
     ]
 
 
-def check_k1(dev, gen):
+def check_k1(dev, gen, b=8):
+    """K1 at batch `b`: 8 is the serving bucket, BENCH_BATCH and 1 what the
+    measurement entry points give it."""
     from multimodalemotionrecognition_torch.kernels import (
         wavlm_attention_sublayer,
         wavlm_attention_sublayer_plain,
     )
 
-    b, t, e, h = 8, 149, 768, 12
+    t, e, h = 149, 768, 12
     report = {}
     for dtype in (torch.float32, torch.bfloat16):
         args = _sublayer_inputs(dev, gen, dtype, b)
@@ -222,7 +244,8 @@ def check_k1(dev, gen):
 
 def check_k3(dev, gen, b=8):
     """K3's six layers at batch `b`: 8 is the serving bucket, TRAIN_BATCH what
-    a train step gives the frozen feature extractor."""
+    a train step gives the frozen feature extractor, BENCH_BATCH and 1 what
+    the measurement entry points give it."""
     from multimodalemotionrecognition_torch.config import WavLMConfig
     from multimodalemotionrecognition_torch.kernels import (
         fused_conv_layer,
@@ -289,6 +312,9 @@ class _Tower(torch.nn.Module):
     def __init__(self, width: int):
         super().__init__()
         self.embedding_dim = self.sequence_dim = width
+
+    def encode_sequence(self, x, *train):
+        return x
 
 
 def _fusion_block(gen, dev, int8: bool, **options):
@@ -415,6 +441,62 @@ def check_k5(dev, gen):
                                **bound(flops, moved, torch.float32), "library_ms": None})
                 print(f"K5 {name}: bound {report['bound_ms']:.5f} ms ({report['bound_by']}; "
                       f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB)")
+    return report
+
+
+def check_k6(dev):
+    """K6 on the bench's tensors (Tp=160, seq_len 149, E=768, 12 heads), at
+    the experiment's batch and at the serving bucket -> report keyed by
+    (dtype name, batch)."""
+    from multimodalemotionrecognition_torch.bench.attn_tile import EPS, H, SEQ, make_tensors
+    from multimodalemotionrecognition_torch.kernels import (
+        wavlm_attention_sublayer,
+        wavlm_attention_sublayer_tiled,
+        wavlm_attention_sublayer_tiled_plain,
+    )
+
+    report = {}
+    for b in (128, 8):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            args = [t.to(dtype) if t.dtype == torch.bfloat16 else t for t in make_tensors(b, dev)]
+            tp, e = args[0].shape[1:]
+            tail = (H, SEQ, EPS)
+            ref = wavlm_attention_sublayer_tiled(1, *args, *tail)
+            want = wavlm_attention_sublayer_tiled_plain(1, *args, *tail)
+            k1 = wavlm_attention_sublayer(*args, *tail)
+            torch.cuda.synchronize()
+            err = (ref[:, :SEQ].float() - want[:, :SEQ].float()).abs().max().item()
+            err_all = (ref.float() - want.float()).abs().max().item()
+            err_k1 = (ref[:, :SEQ].float() - k1[:, :SEQ].float()).abs().max().item()
+            same_as_k1 = torch.equal(ref[:, :SEQ], k1[:, :SEQ])
+            if not (torch.isfinite(ref).all() and max(err, err_all, err_k1) <= K1_TOL[dtype]):
+                raise AssertionError(
+                    f"K6 {name} B={b} disagrees: plain {err} (all rows {err_all}), K1 {err_k1}")
+            per_tile = {}
+            for g in (1, 2, 4, 8):
+                if g != 1 and not torch.equal(wavlm_attention_sublayer_tiled(g, *args, *tail), ref):
+                    raise AssertionError(f"K6 {name} B={b}: G={g} differs from G=1")
+                per_tile[g] = cuda_ms(lambda: wavlm_attention_sublayer_tiled(g, *args, *tail))
+            k1_ms = cuda_ms(lambda: wavlm_attention_sublayer(*args, *tail))
+            plain_ms = cuda_ms(
+                lambda: wavlm_attention_sublayer_tiled_plain(1, *args, *tail), iters=5, warmup=1)
+            # q.k and p.v over seq_len keys for all Tp rows, then the out-projection.
+            flops = 4 * b * tp * SEQ * e + 2 * b * tp * e * e
+            limit = bound(flops, nbytes(*args, ref), dtype)
+            best = min(per_tile, key=per_tile.get)
+            print(f"K6 {name}: B={b} Tp={tp} seq_len={SEQ} E={e} H={H} max_abs_err={err:.3e} "
+                  f"(rows < seq_len; all rows {err_all:.3e}; tol {K1_TOL[dtype]}), G in (2, 4, 8) "
+                  f"equal G=1 bit for bit, against K1 {err_k1:.3e} (bit-equal: {same_as_k1}); "
+                  "kernel " + ", ".join(f"G={g} {ms:.4f}" for g, ms in per_tile.items())
+                  + f" ms; K1 {k1_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+                  f"{limit['bound_ms']:.5f} ms ({limit['bound_by']}; {flops / 1e9:.3f} GFLOP, "
+                  f"{nbytes(*args, ref) / 1e6:.2f} MB)")
+            report[name, b] = {
+                "max_abs_err": err, "ms": per_tile[best], "best_tile": best,
+                "ms_per_tile": {str(g): ms for g, ms in per_tile.items()}, "k1_ms": k1_ms,
+                "plain_ms": plain_ms, **limit, "library_ms": None, "bit_equal_to_k1": same_as_k1,
+            }
     return report
 
 
@@ -743,6 +825,90 @@ def train(dev, card, tmp):
     return launches, report
 
 
+# Phase 9a: family -> ModelConfig overrides (single-stage; the waveform in, log-mel in the step)
+TRAIN_FAMILIES = {
+    "gated_resnet18": dict(fusion="gated", use_wavlm=False, use_resnet_audio=True),
+    "late": dict(fusion="late", use_wavlm=False),
+    "audio": dict(fusion="audio", use_wavlm=False),
+}
+
+
+def train_families(dev, card, tmp):
+    """Phase 9a: `EmotionTrainer` on three of the other families at full
+    width in float32, batch 16 -> report.  The eval step on the card against
+    the same seeded state on the CPU, then TRAIN_STEPS steps through
+    `run_epoch`, then the saved checkpoint through `TorchModelRunner`."""
+    from multimodalemotionrecognition_torch.config import ModelConfig, TrainConfig
+    from multimodalemotionrecognition_torch.ops.mel import log_mel_spectrogram_np
+    from multimodalemotionrecognition_torch.runtime.runner import TorchModelRunner
+    from multimodalemotionrecognition_torch.train import EmotionTrainer
+
+    eval_batch = _train_batches(1, SEED + 5, augment=False)[0]
+    batches = _train_batches(1 + TRAIN_STEPS, SEED + 6)
+    report = {}
+    for family, overrides in TRAIN_FAMILIES.items():
+        def make(device):
+            trainer = EmotionTrainer(
+                ModelConfig(**overrides),
+                TrainConfig(two_stage_training=False, seed=SEED, output_dir=str(tmp)),
+                device=device)
+            return trainer, trainer.init_state()
+
+        def eval_loss(trainer, state, device):
+            to = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+            return trainer.eval_step(state, to(eval_batch.video), to(eval_batch.audio),
+                                     to(eval_batch.labels), to(eval_batch.valid))
+
+        want = float(eval_loss(*make("cpu"), "cpu")[1])
+        trainer, state = make(dev)
+        got = float(eval_loss(trainer, state, dev)[1])
+        err = abs(got - want)
+        print(f"train family {family}: eval loss on the card {got:.6f}, on the CPU {want:.6f} "
+              f"(|diff| {err:.2e}, tol {CPU_PROBS_TOL})")
+        if not err <= CPU_PROBS_TOL:
+            raise AssertionError(f"train family {family}: the card disagrees with the CPU: {err}")
+
+        mask, lrs = trainer.trainable_mask(0), trainer.lr_tree(0, {})
+        trainer.run_epoch(state, batches[:1], True, mask, lrs)  # cuDNN algorithm choice
+        before = {n: p.detach().clone() for n, p in state.params.items()}
+        stats = {n: t.clone() for n, t in state.batch_stats.items() if "running" in n}
+        count, times, losses = state.opt_state.count, [], []
+        for batch in batches[1:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, metrics = trainer.run_epoch(state, [batch], True, mask, lrs)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
+        unchanged = [n for n, p in state.params.items() if torch.equal(p, before[n])]
+        stuck = [n for n, t in stats.items() if torch.equal(t, state.batch_stats[n])]
+        if (not np.isfinite(losses).all() or not all(mask.values()) or unchanged or stuck
+                or state.opt_state.count != count + TRAIN_STEPS):
+            raise AssertionError(f"train family {family}: losses {losses}, unchanged parameters "
+                                 f"{unchanged[:5]}, BatchNorm statistics that stood {stuck[:5]}")
+
+        ckpt = Path(tmp) / f"trained_{family}.pt"
+        trainer.save_checkpoint(ckpt, state, 0.0)
+        cls_loss = float(eval_loss(trainer, state, dev)[1])
+        runner = TorchModelRunner(ckpt, device=dev, compute_dtype="float32", device_normalize=True)
+        probs = runner.predict_probs(eval_batch.video,
+                                     log_mel_spectrogram_np(eval_batch.audio[:, 0, :])[:, None])
+        served = float(-np.log(probs[np.arange(TRAIN_BATCH), eval_batch.labels]).mean())
+        if not abs(served - cls_loss) <= CPU_PROBS_TOL:
+            raise AssertionError(f"train family {family}: the runner on the saved checkpoint gives "
+                                 f"{served}, the trainer's eval step {cls_loss}")
+        report[family] = {"step_ms": times, "losses": losses, "batch": TRAIN_BATCH,
+                          "eval_loss_card_vs_cpu": err}
+        print(f"train family {family} float32: {len(before)} parameters changed and {len(stats)} "
+              f"BatchNorm statistics moved over {TRAIN_STEPS} steps, losses "
+              f"{[round(x, 4) for x in losses]}, step times {[round(t, 1) for t in times]} ms "
+              f"(batch {TRAIN_BATCH}), eval loss {cls_loss:.6f}, the runner on the saved "
+              f"checkpoint {served:.6f} [{card}]")
+        del trainer, state, runner
+        torch.cuda.empty_cache()
+    return report
+
+
 def make_checkpoint(path):
     """The flagship at full width, random weights from the seed -> (config,
     uint8 video [8,8,3,112,112], int16 audio [8,1,48000])."""
@@ -750,7 +916,7 @@ def make_checkpoint(path):
     from multimodalemotionrecognition_torch.models.factory import build_model
 
     cfg = ModelConfig(fusion="xattn", use_wavlm=True)
-    model = build_model(cfg, generator=torch.Generator().manual_seed(SEED))
+    model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED))
     torch.save({"model": model.state_dict(), "config": cfg.to_checkpoint_dict(),
                 "val_f1": 0.0}, path)
     rng = np.random.RandomState(SEED)
@@ -989,17 +1155,198 @@ def block_entries(dev, modular, video, audio):
     return fused_bidirectional_xattn.launches, times
 
 
+def bench_entries(dev, gen):
+    """Phase 7a: the three measurement entry points, each through its normal
+    entry with the launch counts read around it, K1 and K3 held against their
+    plain versions at the batches these entries give them, and each WavLM
+    forward held against the same weights and inputs on the plain path
+    -> (K6 launches, report)."""
+    import os
+
+    from multimodalemotionrecognition_torch import entry as port_entry
+    from multimodalemotionrecognition_torch.bench import attn_tile, forward
+    from multimodalemotionrecognition_torch.kernels import (
+        fused_conv_layer,
+        wavlm_attention_sublayer,
+        wavlm_attention_sublayer_tiled,
+    )
+
+    counters = {"wavlm_attention_sublayer_tiled": wavlm_attention_sublayer_tiled,
+                "wavlm_attention_sublayer": wavlm_attention_sublayer,
+                "fused_conv_layer": fused_conv_layer}
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {name: c.launches for name, c in counters.items()}
+
+    report = {}
+    # K6's main path: the batch-tile experiment at its own size.
+    report["attn_tile"], got = counted(lambda: attn_tile.main(["--batch", "128"]))
+    k6_launches = got["wavlm_attention_sublayer_tiled"]
+    print(f"bench attn_tile: launches {got}")
+    tiles = report["attn_tile"]["results"]
+    if (k6_launches < 1 or set(tiles) != {"1", "2", "4", "8"} or got["fused_conv_layer"]
+            or not all(np.isfinite(ms) and ms > 0 for ms in tiles.values())
+            or not report["attn_tile"]["k1_ms"] > 0):
+        raise AssertionError(f"bench.attn_tile: {report['attn_tile']}, launches {got}")
+
+    # K1 and K3 at the shapes of `bench.forward` here and of `entry()`.
+    report["kernels_at_bench_shapes"] = {
+        f"b{b}": {"wavlm_attention_sublayer": check_k1(dev, gen, b),
+                  "fused_conv_layer": check_k3(dev, gen, b)}
+        for b in (BENCH_BATCH, 1)}
+    plain_path = dict(wavlm_geometry=dict(fused_attention=False, fused_conv=False))
+
+    os.environ.update(BENCH_BATCH=str(BENCH_BATCH), BENCH_ITERS=str(BENCH_ITERS),
+                      BENCH_DTYPE="bfloat16")
+    forwards = 1 + 2 + 3 * BENCH_ITERS  # the check, the warm-up, best of 3
+    for use_wavlm in (True, False):
+        os.environ["BENCH_WAVLM"] = "1" if use_wavlm else "0"
+        key = "forward_wavlm" if use_wavlm else "forward_mel"
+        report[key], got = counted(forward.run_single)
+        want = {"wavlm_attention_sublayer_tiled": 0,
+                "wavlm_attention_sublayer": 12 * forwards if use_wavlm else 0,
+                "fused_conv_layer": 6 * forwards if use_wavlm else 0}
+        print(f"bench {key}: {forwards} forwards, launches {got}")
+        name = f"torch_xattn{'_wavlm' if use_wavlm else ''}_fwd_throughput_b{BENCH_BATCH}_bfloat16"
+        if got != want or report[key]["metric"] != name or not report[key]["value"] > 0:
+            raise AssertionError(f"bench.forward {key}: {report[key]}, launches {got}, expected {want}")
+    # The measured WavLM forward (same seed: same weights and inputs) on the
+    # kernel path against the plain path.
+    got = forward.make_step(BENCH_BATCH, True, "bfloat16", dev)()
+    want = forward.make_step(BENCH_BATCH, True, "bfloat16", dev, **plain_path)()
+    err = (got - want).abs().max().item()
+    print(f"bench forward_wavlm b{BENCH_BATCH} bfloat16: max |kernel - plain| = {err:.3e} "
+          f"(tol {PROBS_TOL['bfloat16']})")
+    if not err <= PROBS_TOL["bfloat16"] or float(got.std(dim=0).max()) < 1e-6:
+        raise AssertionError(f"bench.forward: kernel path disagrees with plain path: {err}")
+    report["forward_wavlm"]["max_abs_err_vs_plain_path"] = err
+
+    (forward_fn, args), built = counted(port_entry.entry)
+    probs, got = counted(lambda: forward_fn(*args))
+    print(f"entry: probabilities {tuple(probs.shape)} on {probs.device}, launches {got}")
+    if (probs.shape != (1, 8) or probs.device.type != "cuda" or not torch.isfinite(probs).all()
+            or abs(float(probs.sum()) - 1.0) > 1e-5 or any(built.values())
+            or got != {"wavlm_attention_sublayer_tiled": 0, "wavlm_attention_sublayer": 12,
+                       "fused_conv_layer": 6}):
+        raise AssertionError(f"entry(): bad forward {probs}, launches {got}")
+    # The same forward on the plain path, on entry()'s own arguments and on a
+    # waveform that is not silence.
+    plain_fn, plain_args = port_entry.entry(**plain_path)
+    wave = (0.1 * torch.randn(1, 1, 48000, generator=gen)).to(dev)
+    frames = torch.randn(1, 8, 3, 112, 112, generator=gen).to(dev)
+    err = max(
+        (forward_fn(args[0], *inputs) - plain_fn(plain_args[0], *inputs)).abs().max().item()
+        for inputs in (args[1:], (frames, wave)))
+    print(f"entry float32: max |kernel - plain| = {err:.3e} (tol {PROBS_TOL['float32']})")
+    if not err <= PROBS_TOL["float32"]:
+        raise AssertionError(f"entry(): kernel path disagrees with plain path: {err}")
+    report["entry"] = {"max_abs_err_vs_plain_path": err}
+    return k6_launches, report
+
+
+# Phase 7b: family -> ModelConfig overrides (a mel model's audio input is the log-mel spectrogram)
+FAMILIES = {
+    "xattn_mel": dict(fusion="xattn", use_wavlm=False),
+    "gated_resnet18": dict(fusion="gated", use_wavlm=False, use_resnet_audio=True),
+    "late": dict(fusion="late", use_wavlm=False),
+    "concat": dict(fusion="concat", use_wavlm=False),
+    "audio": dict(fusion="audio", use_wavlm=False),
+    "video": dict(fusion="video", use_wavlm=False),
+    "xattn_wavlm_transformer": dict(fusion="xattn", use_wavlm=True,
+                                    temporal_pooling="transformer"),
+}
+
+
+def serve_families(dev, card, tmp, video, audio, iters: int = 5):
+    """The other model families at full width through `TorchModelRunner`
+    -> (K1 and K3 launches of the transformer-pooler model, perf)."""
+    from multimodalemotionrecognition_torch.config import ModelConfig
+    from multimodalemotionrecognition_torch.kernels import (
+        fused_conv_layer,
+        wavlm_attention_sublayer,
+    )
+    from multimodalemotionrecognition_torch.models.factory import build_model
+    from multimodalemotionrecognition_torch.ops.mel import log_mel_spectrogram_np
+    from multimodalemotionrecognition_torch.runtime.runner import TorchModelRunner
+    from multimodalemotionrecognition_torch.serving.predictor import EmotionPredictor
+
+    wave = audio.astype(np.float32) / 32768.0
+    mel = log_mel_spectrogram_np(wave[:, 0, :])[:, None]  # [8, 1, 64, 301]
+    perf, launches = {}, {}
+    for family, overrides in FAMILIES.items():
+        cfg = ModelConfig(**overrides)
+        model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED))
+        ckpt = Path(tmp) / f"{family}.pt"
+        torch.save({"model": model.state_dict(), "config": cfg.to_checkpoint_dict(),
+                    "val_f1": 0.0}, ckpt)
+        del model
+        sound = audio if cfg.use_wavlm else mel
+        reference = TorchModelRunner(ckpt, device="cpu", device_normalize=True).predict_probs(
+            video[:1], sound[:1])
+        for dtype in ("bfloat16", "float32"):
+            runner = TorchModelRunner(ckpt, device=dev, compute_dtype=dtype,
+                                      device_normalize=True)
+            if runner.fusion_mode != cfg.fusion or runner.use_wavlm != cfg.use_wavlm:
+                raise AssertionError(f"{family}: served as {runner.fusion_mode}")
+            runner.warmup((1, 8))
+            wavlm_attention_sublayer.launches = fused_conv_layer.launches = 0
+            out = {n: runner.predict_probs(video[:n], sound[:n]) for n in (1, 8)}
+            torch.cuda.synchronize()
+            got = (wavlm_attention_sublayer.launches, fused_conv_layer.launches)
+            if got != ((24, 12) if cfg.use_wavlm else (0, 0)):
+                raise AssertionError(f"{family} {dtype}: K1 and K3 launches {got} over 2 forwards")
+            if cfg.use_wavlm:
+                launches[dtype] = got
+            for n, probs in out.items():
+                if (probs.shape != (n, cfg.num_classes) or not np.isfinite(probs).all()
+                        or not np.allclose(probs.sum(axis=1), 1.0, atol=1e-3)
+                        or (probs < 0).any()):
+                    raise AssertionError(f"{family} {dtype} b{n}: bad probabilities {probs}")
+            if float(out[8].std(axis=0).max()) < 1e-6:
+                raise AssertionError(f"{family} {dtype}: probabilities constant across clips")
+            line = ""
+            if dtype == "float32":
+                err = float(np.abs(out[1] - reference).max())
+                line = f", b1 max |card - cpu| = {err:.3e} (tol {CPU_PROBS_TOL})"
+                if not err <= CPU_PROBS_TOL:
+                    raise AssertionError(f"{family}: the card disagrees with the CPU: {err}")
+                if not cfg.use_wavlm:  # the waveform through the predictor's host mel
+                    pred = EmotionPredictor(runner=runner).predict_waveform(video[:1], wave[:1])
+                    if abs(sum(pred["probs"]) - 100.0) > 1e-2:
+                        raise AssertionError(f"{family}: malformed predictor output {pred}")
+            times = {}
+            for n in (1, 8):
+                samples = []
+                for _ in range(iters):
+                    t0 = time.perf_counter()
+                    runner.predict_probs(video[:n], sound[:n])
+                    samples.append((time.perf_counter() - t0) * 1e3)
+                times[n] = float(np.median(samples))
+            perf[f"{family}_{dtype}"] = {"b1_ms": times[1], "b8_clips_per_s": 8e3 / times[8]}
+            print(f"family {family} {dtype}: b1 latency {times[1]:.2f} ms, b8 "
+                  f"{8e3 / times[8]:.1f} clips/s, b8 probs[0] {np.round(out[8][0].astype(float), 4).tolist()}"
+                  f"{line} [{card}]")
+            del runner
+        torch.cuda.empty_cache()
+    return launches, perf
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
     from multimodalemotionrecognition_torch.kernels.build import BUILD_DIR, load_library
+    from multimodalemotionrecognition_torch.utils.device import card_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    card = card_line()
+    card = card_line(dev)
     print(f"device: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
           f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
@@ -1016,6 +1363,7 @@ def main() -> int:
     k3 = check_k3(dev, gen)
     k4 = check_k4(dev, gen)
     k5 = check_k5(dev, gen)
+    k6 = check_k6(dev)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = Path(tmp) / "flagship.pt"
         cfg, video, audio = make_checkpoint(ckpt)
@@ -1026,32 +1374,41 @@ def main() -> int:
     runners.update(fused_runners)
     launches["fused_bidirectional_xattn"], k4["against_modules"] = block_entries(
         dev, modular, video, audio)
-    perf = time_runners(runners, video, audio, card)
+    perf = time_runners(runners, video, audio, card, rounds=2)
     del runners, fused_runners, modular
     torch.cuda.empty_cache()
+    launches["wavlm_attention_sublayer_tiled"], bench_report = bench_entries(dev, gen)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        family_launches, family_perf = serve_families(dev, card, tmp, video, audio)
     k1_train, k2 = check_train_kernels(dev, gen)
     k3_train = check_k3(dev, gen, TRAIN_BATCH)
     with tempfile.TemporaryDirectory() as tmp:
         train_launches, train_report = train(dev, card, tmp)
+        train_report["families"] = train_families(dev, card, tmp)
 
     csrc = "multimodalemotionrecognition_torch/kernels/csrc/"
     ops = "multimodalemotionrecognition_tpu/ops/"
     kernels = []
     for name, source, replaces, rep in (
-        ("wavlm_attention_sublayer", "wavlm_attn.cu", "pallas_wavlm_attn.py:83", k1["bfloat16"]),
-        ("fused_conv_layer", "conv_fe.cu", "pallas_conv_fe.py:46", k3["bfloat16"]),
+        ("wavlm_attention_sublayer", "wavlm_attn.cu", ops + "pallas_wavlm_attn.py:83",
+         k1["bfloat16"]),
+        ("fused_conv_layer", "conv_fe.cu", ops + "pallas_conv_fe.py:46", k3["bfloat16"]),
         # One kernel with a samples-per-block parameter for both TPU kernels
         # (_block_kernel :436, _block_kernel_batched :506).
-        ("fused_block", "fused_block.cu", "pallas_fused_block.py:436", k4),
-        ("fused_bidirectional_xattn", "xattn.cu", "pallas_xattn.py:102", k5),
-        ("wavlm_attention_sublayer_backward", "wavlm_attn_bwd.cu", "pallas_wavlm_attn.py:191",
-         k2["bfloat16_dropout"]),
+        ("fused_block", "fused_block.cu", ops + "pallas_fused_block.py:436", k4),
+        ("fused_bidirectional_xattn", "xattn.cu", ops + "pallas_xattn.py:102", k5),
+        ("wavlm_attention_sublayer_backward", "wavlm_attn_bwd.cu",
+         ops + "pallas_wavlm_attn.py:191", k2["bfloat16_dropout"]),
+        # The experiment's own shape: B=128 in bfloat16, the best tile's time.
+        ("wavlm_attention_sublayer_tiled", "wavlm_attn_tiled.cu",
+         "benchmarks/bench_attn_tile.py:40", k6["bfloat16", 128]),
     ):
         launches.setdefault(name, train_launches.get(name, 0))
         if launches[name] < 1:
             raise AssertionError(f"{name} was not launched on its path")
         kernels.append({"name": name, "route": "cuda", "source": csrc + source,
-                        "replaces": ops + replaces, "launches": launches[name], **rep})
+                        "replaces": replaces, "launches": launches[name], **rep})
     kernels[0]["float32"], kernels[1]["float32"] = k1["float32"], k3["float32"]
     kernels[2]["also_replaces"] = ops + "pallas_fused_block.py:506"
     # `launches` of K1 and K3 is the serving path's count; the training path's beside it.
@@ -1062,7 +1419,12 @@ def main() -> int:
     kernels[0]["train_shapes"] = k1_train
     kernels[1]["train_shapes"] = {f"{name}_b16": rep for name, rep in k3_train.items()}
     kernels[4]["variants"] = k2
-    print(json.dumps({"kernels": kernels, "serve": perf, "train": train_report, "card": card}))
+    kernels[5]["shapes"] = {f"{name}_b{b}": rep for (name, b), rep in k6.items()}
+    # K1 and K3 on this slice's paths: the bench forward and the transformer-pooler model.
+    kernels[0]["launches_families"] = {d: n[0] for d, n in family_launches.items()}
+    kernels[1]["launches_families"] = {d: n[1] for d, n in family_launches.items()}
+    print(json.dumps({"kernels": kernels, "serve": perf, "families": family_perf,
+                      "bench": bench_report, "train": train_report, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

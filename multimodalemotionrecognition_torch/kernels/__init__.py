@@ -20,6 +20,10 @@ from multimodalemotionrecognition_torch.kernels.wavlm_attn import (
     wavlm_attention_sublayer_forward,
     wavlm_attention_sublayer_plain,
 )
+from multimodalemotionrecognition_torch.kernels.wavlm_attn_tiled import (
+    wavlm_attention_sublayer_tiled,
+    wavlm_attention_sublayer_tiled_plain,
+)
 from multimodalemotionrecognition_torch.kernels.xattn import (
     XattnParams,
     fused_bidirectional_xattn,
@@ -44,5 +48,7 @@ __all__ = [
     "wavlm_attention_sublayer_backward_plain",
     "wavlm_attention_sublayer_forward",
     "wavlm_attention_sublayer_plain",
+    "wavlm_attention_sublayer_tiled",
+    "wavlm_attention_sublayer_tiled_plain",
     "xattn_params_from_state_dict",
 ]

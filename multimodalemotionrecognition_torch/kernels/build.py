@@ -57,6 +57,9 @@ _SIGNATURES = {
     # scratch buffers; B, Tp, seq_len, E, H, col_chunks, eps, dropout, stream
     "emo_wavlm_attn_bwd_f32": [_P] * 27 + [_I] * 6 + [_F] + _DROPOUT + [_P],
     "emo_wavlm_attn_bwd_bf16": [_P] * 27 + [_I] * 6 + [_F] + _DROPOUT + [_P],
+    # as emo_wavlm_attn up to out; then G, B, Tp, seq_len, E, H, eps, stream
+    "emo_wavlm_attn_tiled_f32": [_P] * 13 + [_I] * 6 + [_F, _P],
+    "emo_wavlm_attn_tiled_bf16": [_P] * 13 + [_I] * 6 + [_F, _P],
     # y, w, out, B, rows, t_in, k, stride, cin, cout, gelu_in, gelu_out, stream
     "emo_conv_fe_f32": [_P] * 3 + [_I] * 9 + [_P],
     "emo_conv_fe_bf16": [_P] * 3 + [_I] * 9 + [_P],

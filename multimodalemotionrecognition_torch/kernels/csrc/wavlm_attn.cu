@@ -32,6 +32,9 @@
 //      re-read all of W_o and it took ~0.4 ms of K1's 0.53 ms at B = 8.
 //  (c) wavlm_attn_ln: one warp per row, the LayerNorm from registers, one
 //      write in the compute dtype.
+// The query row of (a), the tile product of (b) and the LayerNorm of (c) live
+// in `wavlm_sublayer.cuh`, shared with the batch-tiled kernel
+// (`wavlm_attn_tiled.cu`).
 // All use CUDA-core FMAs in float32: simple and right first; tensor cores
 // (wgmma) and fewer launches are later work.
 //
@@ -46,24 +49,22 @@
 // stride is the padded Tp, as in the TPU kernel.  The backward also reads
 // the two scratch buffers: ctx and the pre-LayerNorm rows.
 
-#include "common.cuh"
+#include "wavlm_sublayer.cuh"
 
 namespace {
 
 using emo::from_f;
-using emo::round_to;
+using emo::kAttnRows;
+using emo::kAttnWarps;
+using emo::kBK;
+using emo::kBM;
+using emo::kBN;
+using emo::kGemmThreads;
+using emo::kLnMaxPerLane;
+using emo::kLnWarps;
+using emo::kMaxSmem;
+using emo::row_valid;
 using emo::to_f;
-
-constexpr int kAttnWarps = 8;
-constexpr int kAttnRows = 32;  // query rows per block (4 per warp)
-constexpr int kBM = 64, kBN = 64, kBK = 16, kGemmThreads = 256;  // (b)
-constexpr int kLnWarps = 8;     // rows per block of (c)
-constexpr int kLnMaxPerLane = 32;  // E <= 1024
-constexpr int kMaxSmem = 227 * 1024;
-
-__device__ __forceinline__ bool row_valid(int row, int M, int Tp, int seq_len) {
-  return row < M && (row % Tp) < seq_len;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kAttnWarps * 32)
@@ -92,50 +93,15 @@ wavlm_attn_core(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  float* qs = Qs + warp * dh;
-  float* ps = Ps + warp * seq_len;
+  const unsigned stream = emo::attn_stream(seed, b, h);
   for (int r = warp; r < kAttnRows; r += kAttnWarps) {
     const int i = blockIdx.x * kAttnRows + r;
     if (i >= seq_len) break;
     const size_t row = base + (size_t)i * E;
-    for (int d = lane; d < dh; d += 32) qs[d] = to_f(q[row + d]);
-    __syncwarp();
-
-    const float g = gate[((size_t)b * H + h) * Tp + i];
-    const float* brow = bias + ((size_t)h * Tp + i) * Tp;
-    float m = -3.402823466e38f;  // -FLT_MAX
-    for (int j = lane; j < seq_len; j += 32) {
-      const float* kr = Ks + j * ks_stride;
-      float s = 0.f;
-      for (int d = 0; d < dh; ++d) s = fmaf(qs[d], kr[d], s);
-      s += g * brow[j];
-      ps[j] = s;
-      m = fmaxf(m, s);
-    }
-    m = emo::warp_max(m);
-    float l = 0.f;
-    for (int j = lane; j < seq_len; j += 32) {
-      const float p = expf(ps[j] - m);
-      ps[j] = p;
-      l += p;
-    }
-    l = emo::warp_sum(l);
-    const float inv = 1.f / l;
-    const unsigned stream = emo::attn_stream(seed, b, h);
-    for (int j = lane; j < seq_len; j += 32) {
-      float p = ps[j] * inv;
-      if (attn_thr)
-        p = emo::hash_keep(stream, (unsigned)(i * Tp + j), attn_thr) ? p * attn_inv : 0.f;
-      ps[j] = round_to<T>(p);
-    }
-    __syncwarp();
-
-    for (int d = lane; d < dh; d += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < seq_len; ++j) acc = fmaf(ps[j], Vs[j * dh + d], acc);
-      ctx[row + d] = from_f<T>(acc);
-    }
-    __syncwarp();  // qs / ps are rewritten for the warp's next row
+    emo::attn_row<T>(q + row, ctx + row, Ks, Vs, Qs + warp * dh, Ps + warp * seq_len,
+                     bias + ((size_t)h * Tp + i) * Tp, gate[((size_t)b * H + h) * Tp + i],
+                     seq_len, dh, ks_stride, lane, stream, (unsigned)(i * Tp), attn_thr,
+                     attn_inv);
   }
 }
 
@@ -157,14 +123,8 @@ wavlm_attn_out_proj(const T* __restrict__ ctx, const T* __restrict__ hidden,
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
   for (int k0 = 0; k0 < E; k0 += kBK) {
-#pragma unroll
-    for (int l = 0; l < (kBM * kBK) / kGemmThreads; ++l) {
-      const int idx = tid + l * kGemmThreads;
-      const int r = idx / kBK, c = idx % kBK;
-      const int row = m0 + r, kk = k0 + c;
-      As[c][r] = (kk < E && row_valid(row, M, Tp, seq_len))
-                     ? to_f(ctx[(size_t)row * E + kk]) : 0.f;
-    }
+    emo::out_proj_stage_ctx(As, ctx, m0, k0, E, tid,
+                            [=](int row) { return row_valid(row, M, Tp, seq_len); });
 #pragma unroll
     for (int l = 0; l < (kBK * kBN) / kGemmThreads; ++l) {
       const int idx = tid + l * kGemmThreads;
@@ -173,18 +133,7 @@ wavlm_attn_out_proj(const T* __restrict__ ctx, const T* __restrict__ hidden,
       Bs[r][c] = (kk < E && n < E) ? to_f(wo[(size_t)kk * E + n]) : 0.f;
     }
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
+    emo::out_proj_slice(acc, As, &Bs[0][0], tx, ty);
     __syncthreads();
   }
 
@@ -202,38 +151,6 @@ wavlm_attn_out_proj(const T* __restrict__ ctx, const T* __restrict__ hidden,
       if (hid_thr) val = emo::hash_keep(stream, index0 + n, hid_thr) ? val * hid_inv : 0.f;
       proj[(size_t)row * E + n] = val + to_f(hidden[(size_t)row * E + n]);
     }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kLnWarps * 32)
-wavlm_attn_ln(const float* __restrict__ proj, const float* __restrict__ lns,
-              const float* __restrict__ lnb, T* __restrict__ out, int M, int Tp,
-              int seq_len, int E, float eps) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kLnWarps + (threadIdx.x >> 5);
-  if (!row_valid(row, M, Tp, seq_len)) return;
-  const float* x = proj + (size_t)row * E;
-  float v[kLnMaxPerLane];
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < kLnMaxPerLane; ++i) {
-    const int c = lane + 32 * i;
-    v[i] = c < E ? x[c] : 0.f;
-    s += v[i];
-  }
-  const float mean = emo::warp_sum(s) / E;
-  float q = 0.f;
-#pragma unroll
-  for (int i = 0; i < kLnMaxPerLane; ++i) {
-    const int c = lane + 32 * i;
-    if (c < E) q += (v[i] - mean) * (v[i] - mean);
-  }
-  const float rstd = rsqrtf(emo::warp_sum(q) / E + eps);
-#pragma unroll
-  for (int i = 0; i < kLnMaxPerLane; ++i) {
-    const int c = lane + 32 * i;
-    if (c < E) out[(size_t)row * E + c] = from_f<T>((v[i] - mean) * rstd * lns[c] + lnb[c]);
   }
 }
 
@@ -273,7 +190,7 @@ int launch(const void* hidden, const void* q, const void* k, const void* v,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  wavlm_attn_ln<T><<<(M + kLnWarps - 1) / kLnWarps, kLnWarps * 32, 0, stream>>>(
+  emo::wavlm_attn_ln<T><<<(M + kLnWarps - 1) / kLnWarps, kLnWarps * 32, 0, stream>>>(
       static_cast<const float*>(proj), static_cast<const float*>(lns),
       static_cast<const float*>(lnb), static_cast<T*>(out), M, Tp, seq_len, E, eps);
   return cudaGetLastError();

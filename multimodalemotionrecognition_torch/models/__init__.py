@@ -1,5 +1,12 @@
-from multimodalemotionrecognition_torch.models.factory import build_model, init_parameters
+from multimodalemotionrecognition_torch.models.audio import AudioCNN, AudioNet, AudioResNet18
+from multimodalemotionrecognition_torch.models.factory import (
+    build_audio_encoder,
+    build_model,
+    build_video_encoder,
+    init_parameters,
+)
 from multimodalemotionrecognition_torch.models.fusion import (
+    ClipStyleAlignment,
     EmotionPriorBiasAdapter,
     FusionModel,
 )
@@ -8,12 +15,18 @@ from multimodalemotionrecognition_torch.models.video import VideoNet
 from multimodalemotionrecognition_torch.models.wavlm import WavLMAudioEncoder, WavLMModel
 
 __all__ = [
+    "AudioCNN",
+    "AudioNet",
+    "AudioResNet18",
+    "ClipStyleAlignment",
     "EmotionPriorBiasAdapter",
     "FusionModel",
     "TemporalPooler",
     "VideoNet",
     "WavLMAudioEncoder",
     "WavLMModel",
+    "build_audio_encoder",
     "build_model",
+    "build_video_encoder",
     "init_parameters",
 ]

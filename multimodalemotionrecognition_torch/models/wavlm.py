@@ -49,6 +49,7 @@ from multimodalemotionrecognition_torch.kernels.conv_fe import fused_conv_layer
 from multimodalemotionrecognition_torch.kernels.wavlm_attn import (
     wavlm_attention_sublayer,
 )
+from multimodalemotionrecognition_torch.models.temporal import TemporalPooler, check_head
 from multimodalemotionrecognition_torch.ops.stochastic import RngStreams, dropout
 
 __all__ = ["WavLMAudioEncoder", "WavLMAttentionSelf", "WavLMEncoderLayer", "WavLMModel"]
@@ -432,14 +433,34 @@ class WavLMModel(nn.Module):
 
 
 class WavLMAudioEncoder(nn.Module):
-    """Reference `WavLMAudioEncoder` (`src/models/wavlm_audio.py:13-183`),
-    the part the cross-attention fusion taps: `encode_sequence`.  Its pooler
-    and classifier head are not created by the xattn forward and are not
-    declared here."""
+    """Reference `WavLMAudioEncoder` (`src/models/wavlm_audio.py:13-183`):
+    WavLM backbone + TemporalPooler + MLP head (hidden -> hidden -> ReLU ->
+    Dropout 0.2 -> num_classes, keys `classifier.{0,3}`; the reference's
+    embedding is the hidden size, `wavlm_audio.py:50`).
+    `head` says how much is declared, as the JAX module creates only what a
+    fusion mode calls: "none" the backbone alone (the cross-attention modes
+    tap `encode_sequence`), "pool" with the temporal pooler (concat and gated
+    read `encode`), "full" with the MLP head too (audio, late)."""
 
-    def __init__(self, wavlm_config: WavLMConfig = WavLMConfig()):
+    def __init__(
+        self, wavlm_config: WavLMConfig = WavLMConfig(), num_classes: int = 8,
+        temporal_pooling: str = "mean", temporal_num_heads: int = 4,
+        temporal_num_layers: int = 1, temporal_dropout: float = 0.1, head: str = "none",
+    ):
         super().__init__()
+        check_head(head)
         self.wavlm = WavLMModel(wavlm_config)
+        hidden = self.embedding_dim = wavlm_config.hidden_size
+        if head != "none":
+            self.temporal_pool = TemporalPooler(
+                hidden, temporal_pooling, temporal_dropout,
+                num_heads=temporal_num_heads, num_layers=temporal_num_layers,
+            )
+        if head == "full":
+            self.classifier = nn.Sequential(
+                nn.Linear(hidden, hidden), nn.ReLU(), nn.Dropout(0.2),
+                nn.Linear(hidden, num_classes),
+            )
 
     @property
     def sequence_dim(self) -> int:
@@ -452,3 +473,21 @@ class WavLMAudioEncoder(nn.Module):
         if x.ndim == 3:
             x = x[:, 0, :]
         return self.wavlm(x, train, rng)
+
+    def _pooled(self, x, train, rng):
+        gen = rng.device("dropout") if train and rng is not None else None
+        return self.temporal_pool(self.encode_sequence(x, train, rng), gen), gen
+
+    def encode(
+        self, x: torch.Tensor, train: bool = False, rng: Optional[RngStreams] = None
+    ) -> torch.Tensor:
+        return self._pooled(x, train, rng)[0]
+
+    def forward(
+        self, x: torch.Tensor, train: bool = False, rng: Optional[RngStreams] = None
+    ) -> torch.Tensor:
+        emb, gen = self._pooled(x, train, rng)
+        h = torch.relu(self.classifier[0](emb))
+        if gen is not None:
+            h = dropout(h, 0.2, gen)
+        return self.classifier[3](h)

@@ -4,8 +4,8 @@ Counterpart of the JAX package's `ops/stochastic.py`, behavioural (not
 bitwise) equivalents of its draws: `drop_path` (StochasticDepth, reference
 `src/models/fusion.py:11-26`), `modality_dropout_mask` (batch-level modality
 zeroing, `:29-55`), and `dropout`, which stands for Flax's `nn.Dropout`
-(`F.dropout` takes no generator).  `spec_augment` and `mix_noise_snr` come
-with the mel audio branch.
+(`F.dropout` takes no generator), and `spec_augment` (SpecAugment masks,
+`src/models/audio.py:10-52`).  `mix_noise_snr` comes with the data pipeline.
 
 `RngStreams` stands for the JAX trainer's named PRNG streams: one seeded
 generator per name on the compute device, and a host twin for the draws
@@ -19,7 +19,9 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["RNG_STREAMS", "RngStreams", "drop_path", "dropout", "modality_dropout_mask"]
+__all__ = [
+    "RNG_STREAMS", "RngStreams", "drop_path", "dropout", "modality_dropout_mask", "spec_augment",
+]
 
 RNG_STREAMS = (
     "dropout", "droppath", "modality", "specaugment", "wavlm_mask", "layerdrop", "videoaug",
@@ -93,3 +95,42 @@ def modality_dropout_mask(
     device = generator.device if generator is not None else "cpu"
     u = torch.rand(2, generator=generator, device=device)
     return (u[0] >= audio_p).float(), (u[1] >= video_p).float()
+
+
+def spec_augment(
+    generator: Optional[torch.Generator],
+    x: torch.Tensor,
+    freq_mask_param: int = 20,
+    time_mask_param: int = 40,
+    num_masks: int = 2,
+    p: float = 0.5,
+) -> torch.Tensor:
+    """SpecAugment on [..., n_mels, T]: with probability p, `num_masks`
+    rounds of one frequency mask (length ~ U{0..freq_mask_param}) and one
+    time mask (length ~ U{0..time_mask_param}), zero fill, the masks shared
+    by the batch.  Every draw stays on the generator's device: nothing here
+    waits for the host."""
+    n_mels, t = x.shape[-2], x.shape[-1]
+    device = x.device
+
+    def uniform():
+        return torch.rand((), generator=generator, device=device)
+
+    def randint(high):
+        """U{0..high-1} for a tensor or int `high` >= 1."""
+        return torch.floor(uniform() * high).long()
+
+    apply = uniform() <= p
+    mel_ids = torch.arange(n_mels, device=device)[:, None]
+    time_ids = torch.arange(t, device=device)[None, :]
+    keep = torch.ones(n_mels, t, dtype=torch.bool, device=device)
+    for _ in range(num_masks):
+        if freq_mask_param > 0:
+            f_len = randint(freq_mask_param + 1)
+            f_start = randint((n_mels - f_len).clamp_min(1))
+            keep &= ~((mel_ids >= f_start) & (mel_ids < f_start + f_len))
+        if time_mask_param > 0:
+            t_len = randint(time_mask_param + 1)
+            t_start = randint((t - t_len).clamp_min(1))
+            keep &= ~((time_ids >= t_start) & (time_ids < t_start + t_len))
+    return torch.where(apply & ~keep, torch.zeros((), dtype=x.dtype, device=device), x)

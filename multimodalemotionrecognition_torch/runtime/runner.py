@@ -20,7 +20,13 @@ the duck-typed contract that `serving/batcher.py` relies on:
     one call of the whole-fusion-block kernel (`runtime/fused.py`, K4); with
     `quantize_int8` the block's matrices stay int8 and K4 dequantises them.
     A model the kernel does not take (not xattn, or the transformer pooler)
-    raises `ValueError`; the JAX runner warns and serves the modular path.
+    raises `ValueError`: no quiet modular path (the JAX runner warns and
+    serves the modular one).
+  * Every mode of `build_model` is served: with `use_wavlm` false the audio
+    input is a log-mel spectrogram [B, 1, n_mels, 301]; the `audio` and
+    `video` modes run single-input forwards (the bucket follows the audio
+    batch in `audio` mode); `late` already returns probabilities and is not
+    softmaxed again.
 
 No fallback: `device="cuda"` on a host without CUDA raises, and so does a
 kernel that does not build or launch.  `mesh` and `donate` are not ported
@@ -55,11 +61,12 @@ from multimodalemotionrecognition_torch.runtime.fused import (
     supports_fused,
 )
 from multimodalemotionrecognition_torch.runtime.quant import quantize_linears_int8
+from multimodalemotionrecognition_torch.utils.device import require_device
 
 __all__ = ["TorchModelRunner"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_FRAMES, _FRAME_SIZE, _SAMPLES = 8, 112, 48000
+_FRAMES, _FRAME_SIZE, _SAMPLES, _MEL_FRAMES = 8, 112, 48000, 301
 
 
 def _bucket_for(n: int, buckets: Sequence[int]) -> int:
@@ -103,9 +110,7 @@ class TorchModelRunner:
                 raise NotImplementedError(
                     f"TorchModelRunner({name}=...) is not ported yet (ROADMAP queue 1, item 7)"
                 )
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("TorchModelRunner(device='cuda'): CUDA is not available")
+        self.device = require_device(device, "TorchModelRunner")
         if compute_dtype not in _DTYPES:
             raise ValueError(f"Unsupported compute dtype: {compute_dtype}")
         self.dtype = _DTYPES[compute_dtype]
@@ -171,7 +176,9 @@ class TorchModelRunner:
         if fused:
             self._fused_forward = build_fused_xattn_forward(self.model, model_config)
         self.model.to(self.dtype)
-        self.model.audio_model.wavlm.cache_kernel_operands()
+        if self.use_wavlm and fusion != "video":
+            encoder = self.model if fusion == "audio" else self.model.audio_model
+            encoder.wavlm.cache_kernel_operands()
         self._mean = torch.tensor(IMAGENET_MEAN, device=self.device).view(1, 1, 3, 1, 1)
         self._std = torch.tensor(IMAGENET_STD, device=self.device).view(1, 1, 3, 1, 1)
 
@@ -180,7 +187,10 @@ class TorchModelRunner:
     def _example_inputs(self, batch: int) -> Tuple[np.ndarray, np.ndarray]:
         video_dtype = np.uint8 if self.device_normalize else np.float32
         video = np.zeros((batch, _FRAMES, 3, _FRAME_SIZE, _FRAME_SIZE), video_dtype)
-        audio = np.zeros((batch, 1, _SAMPLES), np.float32)
+        if self.use_wavlm:
+            audio = np.zeros((batch, 1, _SAMPLES), np.float32)
+        else:
+            audio = np.zeros((batch, 1, self.model_config.audio_n_mels, _MEL_FRAMES), np.float32)
         return video, audio
 
     @torch.inference_mode()
@@ -193,7 +203,16 @@ class TorchModelRunner:
         video, audio = video.to(self.dtype), audio.to(self.dtype)
         if self._fused_forward is not None:
             return self._fused_forward(video, audio)
-        return torch.softmax(self.model(video, audio).float(), dim=1)
+        if self.fusion_mode == "audio":
+            out = self.model(audio)
+        elif self.fusion_mode == "video":
+            out = self.model(video)
+        else:
+            out = self.model(video, audio)
+        # Late fusion already returns probabilities (`src/optimized_runtime.py:107`).
+        if self.fusion_mode == "late":
+            return out.float()
+        return torch.softmax(out.float(), dim=1)
 
     def _put_batch(self, arr) -> torch.Tensor:
         """Host array -> device tensor; staged tensors pass through."""
@@ -209,9 +228,10 @@ class TorchModelRunner:
         videos = np.asarray(videos)
         if not (self.device_normalize and videos.dtype == np.uint8):
             videos = videos.astype(np.float32)
-        n = videos.shape[0]
+        audios = _host_audio(audios)
+        n = videos.shape[0] if self.fusion_mode != "audio" else audios.shape[0]
         bucket = _bucket_for(n, self.batch_buckets)
-        return _pad_rows(videos, bucket), _pad_rows(_host_audio(audios), bucket), n
+        return _pad_rows(videos, bucket), _pad_rows(audios, bucket), n
 
     def stage(self, videos, audios) -> Tuple[torch.Tensor, torch.Tensor, int]:
         """Bucket-pad and start the host->device copy without waiting; pass

@@ -11,7 +11,9 @@ Unlike the JAX predictor, a runner that fails to build is an error, not a
 silent switch to random mock output: that would hide a dead device.  Mock
 output is only given when asked for (`mock_mode=True` or `EMO_MOCK=1`).
 Decoding media files needs the host-side preprocessing stack, which is not
-ported yet; this predictor takes tensors.
+ported yet; this predictor takes tensors.  `predict_waveform` is the audio
+half of that stack: for a mel model the waveform goes through
+`log_mel_spectrogram_np` on the host, as the JAX package's preprocessing does.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from multimodalemotionrecognition_torch.config import ServeConfig, labels_for
+from multimodalemotionrecognition_torch.ops.mel import log_mel_spectrogram_np
 
 __all__ = ["EmotionPredictor"]
 
@@ -69,6 +72,15 @@ class EmotionPredictor:
             e = np.exp(probs - probs.max())
             probs = e / e.sum()
         return self._format_output(probs)
+
+    def predict_waveform(self, video: np.ndarray, waveform: np.ndarray) -> Dict[str, Any]:
+        """One clip's frames [1, T, 3, H, W] and its 16 kHz waveform
+        [1, 1, samples]: a WavLM model takes the waveform as it is, a mel
+        model its log-mel spectrogram [1, 1, n_mels, frames] made on the host."""
+        if not self.mock_mode and not self.use_wavlm:
+            n_mels = self.runner.model_config.audio_n_mels
+            waveform = log_mel_spectrogram_np(np.asarray(waveform)[:, 0, :], n_mels=n_mels)[:, None]
+        return self.predict_tensors(video, waveform)
 
     def _predict_mock(self) -> Dict[str, Any]:
         probs = np.random.dirichlet(np.ones(len(self.emotion_labels)))

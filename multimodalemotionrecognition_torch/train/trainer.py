@@ -25,6 +25,14 @@ trainer keeps them: each step's forward runs on bfloat16 casts of them
 (`torch.func.functional_call`), the casts of frozen parameters are made once
 per version of the parameter, and the loss is taken in float32.
 
+Every family of `build_model` trains: the single-modality models take their
+own input, the mel models get the log-mel spectrogram made on the device
+inside the step, late fusion's probabilities go through the NLL.  One
+deterministic step is held against the JAX trainer for the flagship and for
+the mel families (gated, late, concat, audio, video, cross-attention); the
+WavLM branch under the other fusions and the transformer pooler train
+without such a check yet.
+
 The WavLM encoder layers run the hand-written attention kernel in the train
 step too (forward with its in-kernel dropouts, and its backward kernel for
 trainable layers), and the frozen conv feature extractor runs the conv
@@ -53,6 +61,7 @@ from multimodalemotionrecognition_torch.config import (
     TrainConfig,
 )
 from multimodalemotionrecognition_torch.models.factory import build_model
+from multimodalemotionrecognition_torch.ops.mel import log_mel_spectrogram
 from multimodalemotionrecognition_torch.ops.stochastic import RngStreams
 from multimodalemotionrecognition_torch.train.freeze import (
     cosine_factor,
@@ -60,6 +69,7 @@ from multimodalemotionrecognition_torch.train.freeze import (
     trainable_mask,
     wavlm_frozen_prefix,
 )
+from multimodalemotionrecognition_torch.utils.device import require_device
 from multimodalemotionrecognition_torch.utils.metrics import accuracy, macro_f1
 from multimodalemotionrecognition_torch.utils.seed import set_seed
 
@@ -182,9 +192,7 @@ class EmotionTrainer:
         train_config: TrainConfig,
         device: str | torch.device = "cuda",
     ):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("EmotionTrainer(device='cuda'): CUDA is not available")
+        self.device = require_device(device, "EmotionTrainer")
         if model_config.compute_dtype not in _DTYPES:
             raise ValueError(f"Unsupported compute dtype: {model_config.compute_dtype}")
         if model_config.use_wavlm:
@@ -320,11 +328,21 @@ class EmotionTrainer:
         return out
 
     def _apply(self, video, audio, train: bool, rng: Optional[RngStreams]) -> torch.Tensor:
-        """-> logits in float32."""
+        """-> the model's output in float32 (logits; probabilities for late
+        fusion).  The single-modality models take their own input alone."""
+        inputs = {"audio": (audio,), "video": (video,)}.get(self.mc.fusion, (video, audio))
         if self.dtype == torch.float32:
-            return self.model(video, audio, train, rng)
-        args = (video.to(self.dtype), audio.to(self.dtype), train, rng)
+            return self.model(*inputs, train, rng)
+        args = (*(x.to(self.dtype) for x in inputs), train, rng)
         return torch.func.functional_call(self.model, self._cast_params(), args).float()
+
+    def _audio_features(self, audio_wav: torch.Tensor) -> torch.Tensor:
+        """Waveform [B, 1, T] -> the model's audio input: WavLM takes it as
+        it is; for the mel models the log-mel front end runs on the device
+        inside the step."""
+        if self.mc.use_wavlm:
+            return audio_wav
+        return log_mel_spectrogram(audio_wav[:, 0, :])[:, None, :, :]
 
     def _device_video(self, video, aug, generator: Optional[torch.Generator]):
         """uint8-wire replay of the reference's float augmentation tail on
@@ -368,7 +386,7 @@ class EmotionTrainer:
         self._set_trainable(mask)
         self.model.zero_grad(set_to_none=True)
         video = self._device_video(video, aug, state.rng.device("videoaug"))
-        outputs = self._apply(video, audio_wav, True, state.rng)
+        outputs = self._apply(video, self._audio_features(audio_wav), True, state.rng)
         total, cls_loss, contrastive = self._losses(outputs, labels, valid)
         total.backward()
         return total.detach(), cls_loss.detach(), contrastive.detach(), outputs.argmax(dim=1)
@@ -392,7 +410,7 @@ class EmotionTrainer:
     @torch.no_grad()
     def eval_step(self, state: TrainState, video, audio_wav, labels, valid, aug=None):
         video = self._device_video(video, aug, None)
-        outputs = self._apply(video, audio_wav, False, None)
+        outputs = self._apply(video, self._audio_features(audio_wav), False, None)
         total, cls_loss, contrastive = self._losses(outputs, labels, valid)
         return total, cls_loss, contrastive, outputs.argmax(dim=1)
 

@@ -22,6 +22,8 @@ from multimodalemotionrecognition_torch.kernels import (
     wavlm_attention_sublayer_backward,
     wavlm_attention_sublayer_backward_plain,
     wavlm_attention_sublayer_plain,
+    wavlm_attention_sublayer_tiled,
+    wavlm_attention_sublayer_tiled_plain,
     xattn_params_from_state_dict,
 )
 from multimodalemotionrecognition_torch.models.factory import init_parameters
@@ -71,6 +73,39 @@ def test_attention_kernel_matches_plain(cuda, dtype, atol, b, tp, seq):
     assert wavlm_attention_sublayer.launches == before + 1
     err = (got[:, :seq].float() - want[:, :seq].float()).abs().max().item()
     assert err <= atol, err
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("b,tp,seq", [(8, 160, 149), (16, 149, 149), (4, 37, 37)])
+def test_tiled_attention_kernel_matches_plain_and_k1_for_every_tile(cuda, dtype, atol, b, tp, seq):
+    """K6: within tolerance of its plain version on every row, the same
+    bits for every tile size, and K1's bits below seq_len (shared device code)."""
+    h = 12
+    args = _sublayer_inputs(b, h, tp, dtype, cuda)
+    before = wavlm_attention_sublayer_tiled.launches
+    ref = wavlm_attention_sublayer_tiled(1, *args, h, seq)
+    want = wavlm_attention_sublayer_tiled_plain(1, *args, h, seq)
+    k1 = wavlm_attention_sublayer(*args, num_heads=h, seq_len=seq)
+    torch.cuda.synchronize()
+    assert torch.isfinite(ref).all()
+    assert (ref.float() - want.float()).abs().max().item() <= atol
+    assert torch.equal(ref[:, :seq], k1[:, :seq])
+    tiles = [g for g in (2, 4, 8) if b % g == 0]
+    for g in tiles:
+        assert torch.equal(wavlm_attention_sublayer_tiled(g, *args, h, seq), ref), g
+    assert wavlm_attention_sublayer_tiled.launches == before + 1 + len(tiles)
+
+
+def test_tiled_attention_kernel_refuses_what_it_does_not_take(cuda):
+    args = _sublayer_inputs(4, 12, 37, torch.float32, cuda)
+    with pytest.raises(ValueError, match="g_tile"):
+        wavlm_attention_sublayer_tiled(3, *args, 12, 37)
+    args[1].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        wavlm_attention_sublayer_tiled(2, *args, 12, 37)
+    wide = _sublayer_inputs(1, 18, 16, torch.float32, cuda)  # E = 1152 > 1024
+    with pytest.raises(ValueError, match="E=1152"):
+        wavlm_attention_sublayer_tiled(1, *wide, 18, 16)
 
 
 GRAD_NAMES = ("hidden", "q", "k", "v", "gate", "bias", "wo", "bo", "lns", "lnb")
@@ -157,6 +192,9 @@ class _Tower(torch.nn.Module):
     def __init__(self, width):
         super().__init__()
         self.embedding_dim = self.sequence_dim = width
+
+    def encode_sequence(self, x, *train):
+        return x
 
 
 def _fusion_block(device, pooling, head, prior, int8, seed=2):

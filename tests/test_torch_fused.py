@@ -62,6 +62,9 @@ class _Tower(torch.nn.Module):
         super().__init__()
         self.embedding_dim = self.sequence_dim = width
 
+    def encode_sequence(self, x, *train):
+        return x
+
 
 def _block(pooling, head, prior, seed=0):
     """-> (JAX variables with every leaf random, inputs, spec, port model)."""

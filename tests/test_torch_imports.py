@@ -33,8 +33,9 @@ def test_port_imports_no_jax_or_flax():
     assert "multimodalemotionrecognition_torch.kernels.wavlm_attn" in report["modules"]
     assert "multimodalemotionrecognition_torch.kernels.fused_block" in report["modules"]
     assert "multimodalemotionrecognition_torch.runtime.fused" in report["modules"]
-    for module in ("train.trainer", "train.freeze", "utils.metrics", "utils.seed",
-                   "ops.stochastic"):
+    for module in ("train.trainer", "train.freeze", "utils.metrics", "utils.seed", "utils.device",
+                   "ops.stochastic", "bench", "bench.attn_tile", "bench.forward", "entry",
+                   "ops.mel", "ops.image", "models.audio", "kernels.wavlm_attn_tiled"):
         assert f"multimodalemotionrecognition_torch.{module}" in report["modules"]
     assert report["heavy"] == []
     # Not even the JAX package's framework-free modules: the port has its own config.

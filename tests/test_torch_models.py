@@ -103,7 +103,7 @@ def test_state_dict_keys_equal_jax_init_leaves(overrides):
         )
     )
     zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), template)
-    assert build_model(cfg).state_dict().keys() == flax_to_torch_state_dict(zeros).keys()
+    assert build_model(cfg, device="cpu").state_dict().keys() == flax_to_torch_state_dict(zeros).keys()
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["modular", "kernels"])
@@ -163,7 +163,7 @@ def test_flagship_fusion_matches_jax(flagship):
     jmodel, variables, sd = flagship
     video, audio = _inputs(5)
     want, _ = _jax_apply(jmodel, variables, video, audio)
-    port = build_model(_config())
+    port = build_model(_config(), device="cpu")
     port.load_state_dict(sd, strict=True)
     with torch.no_grad():
         got = port(torch.from_numpy(video), torch.from_numpy(audio))
@@ -184,7 +184,7 @@ def test_fusion_variants_match_jax(overrides):
     video, audio = _inputs(6)
     variables = _jax_init(jmodel, video, audio)
     want, _ = _jax_apply(jmodel, variables, video, audio)
-    port = build_model(cfg)
+    port = build_model(cfg, device="cpu")
     port.load_state_dict(flax_params_to_state_dict(flatten_dict(variables)), strict=True)
     with torch.no_grad():
         got = port(torch.from_numpy(video), torch.from_numpy(audio))
@@ -193,9 +193,23 @@ def test_fusion_variants_match_jax(overrides):
 
 @pytest.mark.parametrize(
     "overrides",
-    [{"fusion": "late"}, {"use_wavlm": False}, {"temporal_pooling": "transformer"}],
-    ids=["late", "mel_audio", "transformer_pool"],
+    [{"fusion": "early"}, {"compute_dtype": "float16"}, {"temporal_pooling": "lstm"}],
+    ids=["unknown_fusion", "unknown_dtype", "unknown_pooling"],
 )
 def test_unported_configs_raise(overrides):
-    with pytest.raises(NotImplementedError):
-        build_model(_config(**overrides))
+    """Every mode of the JAX factory builds (`tests/test_torch_families.py`
+    holds each against the JAX package); what neither package has raises
+    `ValueError`, as there."""
+    with pytest.raises(ValueError):
+        build_model(_config(**overrides), device="cpu")
+    with pytest.raises(ValueError):
+        jax_build_model(_config(**overrides)).init(
+            jax.random.PRNGKey(0), jnp.zeros(VIDEO), jnp.zeros(AUDIO)
+        )
+
+
+def test_build_model_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(_config())

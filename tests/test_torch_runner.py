@@ -203,3 +203,105 @@ def test_weight_norm_merge_matches_jax():
     assert got.keys() == want.keys()
     for key in want:
         np.testing.assert_allclose(got[key].numpy(), want[key], rtol=1e-6, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# the other model families: mel audio, gated, late, audio, video
+# ---------------------------------------------------------------------------
+
+FAMILY_ATOL = 5e-5  # float32 probabilities, other sum orders in the conv stacks
+MEL = (1, 64, 301)
+FAMILY_CONFIGS = {
+    "xattn_mel": dict(fusion="xattn", use_resnet_audio=True),
+    "gated": dict(fusion="gated", use_resnet_audio=False),
+    "late": dict(fusion="late", use_resnet_audio=False),
+    "audio": dict(fusion="audio", use_resnet_audio=False),
+    "video": dict(fusion="video"),
+}
+
+
+@pytest.fixture(scope="module")
+def family_runners(tmp_path_factory):
+    """family -> (JAX runner, port runner) on one checkpoint saved by the
+    JAX package, built on first use."""
+    built = {}
+
+    def get(family):
+        if family not in built:
+            cfg = ModelConfig(
+                num_classes=8, use_wavlm=False, spec_augment=False, xattn_d_model=32,
+                xattn_attn_dropout=0.0, xattn_stochastic_depth=0.0, **FAMILY_CONFIGS[family],
+            )
+            model = jax_build_model(cfg)
+            video, mel = jnp.zeros((1,) + FRAMES), jnp.zeros((1,) + MEL)
+            inputs = {"audio": (mel,), "video": (video,)}.get(family, (video, mel))
+            variables = jax.jit(model.init)(jax.random.PRNGKey(1), *inputs)
+            path = tmp_path_factory.mktemp(f"torch_{family}") / f"best_{family}.pt"
+            torch_import.save_torch_checkpoint(path, variables, config=cfg.to_checkpoint_dict())
+            built[family] = (
+                JaxModelRunner(str(path), batch_buckets=(4,)),
+                TorchModelRunner(str(path), device="cpu", batch_buckets=(4,)),
+                str(path),
+            )
+        return built[family]
+
+    return get
+
+
+def _mel_clips(n, seed):
+    rng = np.random.RandomState(seed)
+    video = rng.randn(n, *FRAMES).astype(np.float32)
+    mel = (rng.randn(n, *MEL) * 10.0 - 20.0).astype(np.float32)
+    return video, mel
+
+
+@pytest.mark.parametrize("family", FAMILY_CONFIGS)
+def test_family_predict_probs_matches_jax(family_runners, family):
+    jax_runner, port, _ = family_runners(family)
+    assert port.fusion_mode == jax_runner.fusion_mode == FAMILY_CONFIGS[family]["fusion"]
+    assert port.use_wavlm is False and jax_runner.use_wavlm is False
+    video, mel = _mel_clips(3, seed=20)
+    if family == "audio":
+        video = video[:1]  # the bucket follows the audio batch
+    want = jax_runner.predict_probs(video, mel)
+    got = port.predict_probs(video, mel)
+    assert got.shape == want.shape == (3, 8)
+    np.testing.assert_allclose(got, want, atol=FAMILY_ATOL)
+    # One softmax for every mode; late fusion's probabilities are not softmaxed again.
+    np.testing.assert_allclose(got.sum(axis=1), 1.0, atol=1e-6)
+    assert got.std(axis=0).max() > 1e-6
+
+
+def test_mel_blank_video_and_warmup_shapes_match_jax(family_runners):
+    jax_runner, port, _ = family_runners("xattn_mel")
+    _, mel = _mel_clips(2, seed=21)
+    np.testing.assert_allclose(
+        port.predict_probs_blank_video(mel), jax_runner.predict_probs_blank_video(mel),
+        atol=FAMILY_ATOL,
+    )
+    video, audio = port._example_inputs(4)
+    jvideo, jaudio = jax_runner._example_inputs(4)
+    assert video.shape == jvideo.shape and audio.shape == jaudio.shape == (4, 1, 64, 301)
+
+
+def test_predictor_makes_the_mel_on_the_host_and_softmaxes_late_again(family_runners):
+    from multimodalemotionrecognition_tpu.ops.mel import log_mel_spectrogram_np
+
+    _, port, _ = family_runners("late")
+    rng = np.random.RandomState(22)
+    video = rng.randn(1, *FRAMES).astype(np.float32)
+    wave = (rng.randn(1, 1, 48000) * 0.1).astype(np.float32)
+    predictor = EmotionPredictor(runner=port)
+    assert predictor.use_wavlm is False
+    out = predictor.predict_waveform(video, wave)
+    mel = log_mel_spectrogram_np(wave[:, 0, :])[:, None]
+    probs = port.predict_probs(video, mel)[0]
+    e = np.exp(probs - probs.max())  # the direct backend's second softmax
+    np.testing.assert_allclose(out["probs"], (e / e.sum()).astype(np.float64) * 100, rtol=1e-5)
+
+
+def test_fused_refuses_a_model_the_block_kernel_does_not_take(family_runners):
+    """No quiet modular path: the JAX runner warns and serves the modules."""
+    _, _, path = family_runners("gated")
+    with pytest.raises(ValueError, match="fused=True"):
+        TorchModelRunner(path, device="cpu", fused=True)

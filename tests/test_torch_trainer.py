@@ -634,3 +634,142 @@ def test_mask_changed_in_place_takes_effect_and_drops_stale_casts(one_step):
     trainer.train_step(state, *_tensors(batch), mask, lrs)
     assert state.params[q].requires_grad and not torch.equal(state.params[q], sd[q])
     assert q not in trainer._cast_cache  # trainable: cast per step, nothing kept
+
+
+# ---------------------------------------------------------------------------
+# the other model families
+# ---------------------------------------------------------------------------
+
+MEL_KW = dict(
+    fusion="gated", use_wavlm=False, use_resnet_audio=False, num_classes=CLASSES,
+    spec_augment=False,
+)
+SINGLE_STAGE = dict(two_stage_training=False, epochs=1, lr=1e-3, weight_decay=1e-4,
+                    donate_buffers=False)
+
+
+def _one_family_step_against_jax(monkeypatch, overrides):
+    """One deterministic single-stage step of the family `MEL_KW + overrides`
+    through the JAX `_train_step` and through the port, from the same
+    converted state and batch: the waveform goes through the log-mel front
+    end inside the step on both sides.  The modality dropout (0.2 in both
+    packages, not configurable) and the MLP and pooler dropouts are patched
+    to the identity.  Loss 1e-5; pre-optimizer gradients 1e-4 of each leaf's
+    largest entry, and never under 1e-6 (a conv bias in front of a train-mode
+    BatchNorm has a gradient of exactly zero, and both sides return rounding
+    noise of about 1e-7 there); BatchNorm statistics 1e-4 relative (the mel is in dB, so
+    the first layer's variances are of order 1e3).  -> the number of
+    BatchNorm statistics compared."""
+    from multimodalemotionrecognition_tpu.models import fusion as jax_fusion
+    from multimodalemotionrecognition_torch.models import temporal as port_temporal
+
+    kw = {**MEL_KW, **overrides}
+    monkeypatch.setattr(flax.linen, "Dropout", _NoDropout)
+    monkeypatch.setattr(jax_fusion, "modality_dropout_mask",
+                        lambda rng, a, v: (jnp.float32(1.0), jnp.float32(1.0)))
+    jtrainer = jax_trainer.EmotionTrainer(JaxModelConfig(**kw), JaxTrainConfig(**SINGLE_STAGE))
+    state = jtrainer.init_state()
+    sd = flax_params_to_state_dict(
+        flatten_dict({"params": jax.device_get(state.params),
+                      "batch_stats": jax.device_get(state.batch_stats)}))
+    batch = _batches(1, seed=5)[0]
+    batch.audio = np.random.default_rng(6).standard_normal((B, 1, 8000)).astype(np.float32) * 0.05
+    jmask = jax_freeze.trainable_mask(state.params, jtrainer.mc, jtrainer.tc, 0)
+    jlrs = jax_freeze.lr_tree(state.params, jtrainer.mc, jtrainer.tc, 0, {})
+    new_state, total, cls_loss, _, preds = jtrainer._train_step(
+        state, jnp.asarray(batch.video), jnp.asarray(batch.audio),
+        jnp.asarray(batch.labels), jnp.asarray(batch.valid), jmask, jlrs,
+    )
+    new_state = jax.device_get(new_state)
+    params0 = flatten_dict(jax.device_get(state.params))
+    want_grads = adam_moments_to_state_dict({
+        path: np.asarray(mu) / (1.0 - ADAM_B1) - 1e-4 * np.asarray(params0[path])
+        for path, mu in flatten_dict(new_state.opt_state.mu).items()
+    })
+    want_stats = flax_params_to_state_dict(flatten_dict({"batch_stats": new_state.batch_stats}))
+
+    identity = lambda x, rate, generator: x  # noqa: E731
+    monkeypatch.setattr(port_fusion, "dropout", identity)
+    monkeypatch.setattr(port_temporal, "dropout", identity)
+    trainer = EmotionTrainer(ModelConfig(**kw), TrainConfig(**SINGLE_STAGE), device="cpu")
+    pstate = trainer.init_state()
+    pstate.model.load_state_dict(sd, strict=True)
+    if hasattr(pstate.model, "modality_dropout"):
+        pstate.model.modality_dropout = (0.0, 0.0)
+    mask = trainer.trainable_mask(0)
+    assert all(mask.values()) and set(mask) == {
+        state_dict_key(("params", *p)) for p in flatten_dict(jmask)}
+    ptotal, pcls, _, ppreds = trainer.loss_and_grads(pstate, *_tensors(batch), mask)
+    assert abs(float(ptotal) - float(total)) <= 1e-5
+    assert abs(float(pcls) - float(cls_loss)) <= 1e-5
+    np.testing.assert_array_equal(ppreds.numpy(), np.asarray(preds))
+    assert set(pstate.params) == set(want_grads)
+    for name, p in pstate.params.items():
+        ref = want_grads[name].numpy()
+        tol = 1e-4 * max(np.abs(ref).max(), 1e-2)
+        np.testing.assert_allclose(p.grad.numpy(), ref, atol=tol, rtol=0, err_msg=name)
+    n_stats = 0
+    for name, buf in pstate.batch_stats.items():
+        if name.endswith(("running_mean", "running_var")):
+            n_stats += 1
+            np.testing.assert_allclose(buf.numpy(), want_stats[name].numpy(), rtol=1e-4,
+                                       atol=1e-5, err_msg=name)
+    return n_stats
+
+
+def test_one_gated_mel_train_step_matches_jax(monkeypatch):
+    """Gated fusion + `AudioCNN` (see `_one_family_step_against_jax`)."""
+    n_stats = _one_family_step_against_jax(monkeypatch, {})
+    assert n_stats == 2 * (3 + 20)  # AudioCNN's three norms, ResNet18's twenty
+
+
+# The families `EmotionTrainer` trains beside the flagship and gated: each is
+# held against the JAX trainer here; a family with no case here is not checked.
+FAMILY_STEPS = {
+    "late": (dict(fusion="late"), 2 * (3 + 20)),
+    "concat": (dict(fusion="concat"), 2 * (3 + 20)),
+    "audio_resnet18": (dict(fusion="audio", use_resnet_audio=True), 2 * 20),
+    "video_attn_pool": (dict(fusion="video", temporal_pooling="attn"), 2 * 20),
+    "xattn_mel": (dict(fusion="xattn", xattn_d_model=32, xattn_attn_dropout=0.0,
+                       xattn_stochastic_depth=0.0), 2 * (3 + 20)),
+}
+
+
+@pytest.mark.parametrize("family", list(FAMILY_STEPS))
+def test_one_train_step_of_each_family_matches_jax(monkeypatch, family):
+    """late (NLL on probabilities), concat, a single-modality audio model on
+    the non-residual `AudioResNet18`, a video model with the attention
+    pooler, and cross-attention over the mel branch."""
+    overrides, want_stats = FAMILY_STEPS[family]
+    assert _one_family_step_against_jax(monkeypatch, overrides) == want_stats
+
+
+@pytest.mark.parametrize(
+    "overrides",
+    [dict(fusion="late", use_resnet_audio=False), dict(fusion="concat", use_resnet_audio=False),
+     dict(fusion="audio", use_resnet_audio=True), dict(fusion="video", temporal_pooling="attn"),
+     dict(fusion="xattn", use_resnet_audio=False, xattn_d_model=32, spec_augment=True)],
+    ids=["late", "concat", "audio_resnet18", "video", "xattn_mel_specaugment"],
+)
+def test_every_family_takes_train_steps(overrides):
+    """A few real steps per family: finite losses, parameters and BatchNorm
+    statistics that move, an eval step that repeats."""
+    mc = ModelConfig(**{**MEL_KW, **overrides})
+    trainer = EmotionTrainer(mc, TrainConfig(**SINGLE_STAGE), device="cpu")
+    state = trainer.init_state()
+    batch = _batches(1, seed=7)[0]
+    batch.audio = np.random.default_rng(8).standard_normal((B, 1, 8000)).astype(np.float32) * 0.05
+    mask, lrs = trainer.trainable_mask(0), trainer.lr_tree(0, {})
+    before = {n: p.detach().clone() for n, p in state.params.items()}
+    losses = [float(trainer.train_step(state, *_tensors(batch), mask, lrs)[0]) for _ in range(2)]
+    assert np.isfinite(losses).all() and state.opt_state.count == 2
+    moved = [n for n, p in state.params.items() if not torch.equal(p, before[n])]
+    assert len(moved) > 0.9 * len(before)
+    total, _, contrastive, preds = trainer.eval_step(state, *_tensors(batch))
+    assert np.isfinite(float(total)) and float(contrastive) == 0.0 and preds.shape == (B,)
+    assert float(trainer.eval_step(state, *_tensors(batch))[0]) == float(total)
+    if mc.fusion == "late":  # NLL on probabilities: the output rows sum to 1
+        with torch.no_grad():
+            out = trainer._apply(torch.from_numpy(batch.video),
+                                 trainer._audio_features(torch.from_numpy(batch.audio)), False, None)
+        np.testing.assert_allclose(out.sum(dim=1).numpy(), 1.0, atol=1e-5)
