@@ -10,7 +10,8 @@ Phases (the first failure ends the run with a non-zero exit code):
 
   1. device  - the card's name and power limit (nvidia-smi); no CUDA, no run.
   2. build   - nvcc builds the kernels from `multimodalemotionrecognition_torch/
-               kernels/csrc/` for sm_90a, one process per source.
+               kernels/csrc/` for sm_90a, one process per source; the run
+               fails if ptxas reports a spill in a tensor-core kernel.
   3. kernels - each kernel against its plain PyTorch version at the serving
                path's shapes, with TF32 off: K1 (B=8, T=149, E=768, 12 heads)
                and K3 (layers L1..L6 at B=8) in float32 and bfloat16; K4, the
@@ -26,7 +27,9 @@ Phases (the first failure ends the run with a non-zero exit code):
                from CUDA events, the library call's time where one PyTorch
                call computes the same function (K3: conv1d + gelu), and each
                kernel's bound: the larger of its bytes over 3.35 TB/s and its
-               operations over the peak rate of their type.
+               operations over the peak rate of their type.  K1's device time
+               per launch by kernel name (`torch.profiler`), in bfloat16.
+               In bfloat16 K3 and K1 run on the tensor cores (wgmma, mma.sync).
   4. serve   - the flagship model (xattn + WavLM-base 12x768 + ResNet18,
                concat head, mean pooling, d_model 128) with random weights
                from a seeded generator, saved as a reference-format .pt and
@@ -34,7 +37,9 @@ Phases (the first failure ends the run with a non-zero exit code):
                int16 audio).  Requests of 1, 3 and 8 clips, a blank-video
                request and an `EmotionPredictor` call, checked against the
                same weights on the plain (modular) path on the card, with
-               the kernels' launch counts (12 K1 + 6 K3 per forward).
+               the kernels' launch counts (12 K1 + 6 K3 per forward); then
+               one b8 request per dtype under `torch.profiler` (device busy
+               time, idle share, the largest kernels).
   5. fused   - the same checkpoint through `TorchModelRunner(fused=True)`,
                `(quantize_int8=True)` and both, bf16 and f32: fused against
                modular, int8 + fused against int8, int8 against float; 1 K4,
@@ -97,6 +102,7 @@ line; the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import re
 import sys
 import tempfile
 import time
@@ -196,6 +202,12 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _short_name(key: str) -> str:
+    """A CUDA kernel's name without its namespaces, return type and arguments."""
+    key = key.replace("(anonymous namespace)::", "").replace("void ", "", 1)
+    return key.split("(")[0].split("::")[-1]
+
+
 def _sublayer_inputs(dev, gen, dtype, b, t=149, e=768, h=12):
     """K1's ten operands at the WavLM-base widths, random from `gen`."""
     def r(*shape, scale=1.0, shift=0.0, dt=dtype):
@@ -239,6 +251,12 @@ def check_k1(dev, gen, b=8):
             raise AssertionError(f"K1 {name} disagrees with its plain version: {err}")
         report[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **limit,
                         "library_ms": None}
+        if dtype == torch.bfloat16:
+            split = profile_steps(
+                lambda: wavlm_attention_sublayer(*args, num_heads=h, seq_len=t), n=5)["kernels"]
+            print(f"K1 {name} B={b} per launch: "
+                  + ", ".join(f"{kernel} {ms:.4f} ms" for kernel, ms in split.items()))
+            report[name]["split_ms"] = split
     return report
 
 
@@ -651,11 +669,13 @@ def _train_batches(n, seed, augment=True):
 
 def profile_steps(step, n: int = 2) -> dict:
     """Device time of `n` calls of step() by `torch.profiler` -> busy share
-    of the wall time and the kernels' device time per step, by group."""
+    of the wall time and the device time per step, by group and by kernel
+    (`kernels`: short name -> ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    groups = {"K1": "::wavlm_attn_", "K2": "::bwd_", "K3": "conv_fe_kernel"}
+    groups = {"K1": ("::wavlm_attn_", "attn_core_mma", "out_proj_mma"), "K2": ("::bwd_",),
+              "K3": ("conv_fe_kernel", "conv_fe_wgmma")}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -667,13 +687,16 @@ def profile_steps(step, n: int = 2) -> dict:
     rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows = [r for r in rows if r[1] > 0.0]
+    kernels = {}
+    for key, ms, _ in rows:
+        kernels[_short_name(key)] = kernels.get(_short_name(key), 0.0) + ms
     if not rows:
-        return {"wall_ms": wall_ms, "device_ms": None}
+        return {"wall_ms": wall_ms, "device_ms": None, "kernels": kernels}
     out = {"wall_ms": wall_ms, "device_ms": sum(r[1] for r in rows),
-           "device_launches": sum(r[2] for r in rows)}
+           "device_launches": sum(r[2] for r in rows), "kernels": kernels}
     out["idle_share"] = max(0.0, 1.0 - out["device_ms"] / wall_ms)
     for label, needle in groups.items():
-        out[f"{label}_ms"] = sum(r[1] for r in rows if needle in r[0])
+        out[f"{label}_ms"] = sum(r[1] for r in rows if any(n in r[0] for n in needle))
     out["top"] = [(k[:60], round(ms, 4), c) for k, ms, c in sorted(rows, key=lambda r: -r[1])[:8]]
     return out
 
@@ -812,7 +835,7 @@ def train(dev, card, tmp):
         mask, lrs = trainer.trainable_mask(2), trainer.lr_tree(2, {})
         batch = _train_batches(1, SEED + 4)
         prof = profile_steps(lambda: trainer.run_epoch(state, batch, True, mask, lrs))
-        report[dtype]["stage2_profile"] = prof
+        report[dtype]["stage2_profile"] = {k: v for k, v in prof.items() if k != "kernels"}
         if prof["device_ms"] is None:
             print(f"train {dtype} stage 2 profile: the profiler saw no device time; not measured")
             continue
@@ -1012,6 +1035,19 @@ def serve(dev, card, ckpt, cfg, video, audio):
             raise AssertionError(f"{dtype}: malformed predictor output {pred}")
         print(f"serve {dtype}: b8 probs[0] {np.round(out[8][0], 4).tolist()} "
               f"predictor top1 {pred['top1']}")
+
+    # Beside the main path: where a b8 request's device time goes.
+    for dtype in ("bfloat16", "float32"):
+        runner = runners[dtype, "auto"]
+        prof = profile_steps(lambda: runner.predict_probs(video, audio))
+        if prof["device_ms"] is None:
+            print(f"serve {dtype} b8 profile: the profiler saw no device time; not measured")
+            continue
+        print(f"serve {dtype} b8 profile, per request: wall {prof['wall_ms']:.1f} ms, device busy "
+              f"{prof['device_ms']:.2f} ms in {prof['device_launches']:.0f} launches (idle share "
+              f"{prof['idle_share']:.2f}); K3 {prof['K3_ms']:.3f} ms, K1 {prof['K1_ms']:.3f} ms")
+        for key, ms, count in prof["top"]:
+            print(f"    {ms:8.3f} ms x{count:<6g} {key}")
 
     return launches, {
         f"{dtype}_{'kernels' if fused == 'auto' else 'plain'}": runner
@@ -1353,10 +1389,21 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = load_library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {Path(lib._name).relative_to(REPO)}")
+    spills, function = {}, None
     for log in BUILD_DIR.glob("*.log"):
         for line in log.read_text().splitlines():
+            if "Function properties for" in line:
+                function = line.split("Function properties for")[-1].strip()
+            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if found and function:
+                spills[function] = int(found[1]) + int(found[2])
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("  ptxas", line.split("info    :")[-1].strip())
+    tensor_core = {f: n for f, n in spills.items()
+                   if any(k in f for k in ("conv_fe_wgmma", "attn_core_mma", "out_proj_mma"))}
+    print(f"build: spill bytes of the tensor-core kernels {tensor_core}")
+    if len(tensor_core) < 4 or any(tensor_core.values()):
+        raise AssertionError(f"tensor-core kernels missing from the build log or spilling: {tensor_core}")
 
     gen = torch.Generator().manual_seed(SEED)
     k1 = check_k1(dev, gen)
@@ -1393,7 +1440,7 @@ def main() -> int:
     for name, source, replaces, rep in (
         ("wavlm_attention_sublayer", "wavlm_attn.cu", ops + "pallas_wavlm_attn.py:83",
          k1["bfloat16"]),
-        ("fused_conv_layer", "conv_fe.cu", ops + "pallas_conv_fe.py:46", k3["bfloat16"]),
+        ("fused_conv_layer", "conv_fe_tc.cu", ops + "pallas_conv_fe.py:46", k3["bfloat16"]),
         # One kernel with a samples-per-block parameter for both TPU kernels
         # (_block_kernel :436, _block_kernel_batched :506).
         ("fused_block", "fused_block.cu", ops + "pallas_fused_block.py:436", k4),
@@ -1410,6 +1457,13 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": csrc + source,
                         "replaces": replaces, "launches": launches[name], **rep})
     kernels[0]["float32"], kernels[1]["float32"] = k1["float32"], k3["float32"]
+    # bfloat16 on the tensor cores (the rows above); float32 on CUDA cores.
+    kernels[0]["sources"] = [csrc + "wavlm_attn.cu", csrc + "wavlm_attn_tc.cuh", csrc + "hopper.cuh"]
+    kernels[1]["sources"] = [csrc + "conv_fe_tc.cu", csrc + "hopper.cuh", csrc + "conv_fe.cu"]
+    # K1's device time per launch in bfloat16, at each batch it was held at.
+    kernels[0]["split_ms"] = {"b8": k1["bfloat16"]["split_ms"], **{
+        key: rep["wavlm_attention_sublayer"]["bfloat16"]["split_ms"]
+        for key, rep in bench_report["kernels_at_bench_shapes"].items()}}
     kernels[2]["also_replaces"] = ops + "pallas_fused_block.py:506"
     # `launches` of K1 and K3 is the serving path's count; the training path's beside it.
     for entry in kernels[:2]:

@@ -63,6 +63,8 @@ _SIGNATURES = {
     # y, w, out, B, rows, t_in, k, stride, cin, cout, gelu_in, gelu_out, stream
     "emo_conv_fe_f32": [_P] * 3 + [_I] * 9 + [_P],
     "emo_conv_fe_bf16": [_P] * 3 + [_I] * 9 + [_P],
+    # y, w, out, B, rows, t_in, k, stride, cin, cout, gelu_out, plan, steps, stream
+    "emo_conv_fe_wgmma_bf16": [_P] * 3 + [_I] * 8 + [ctypes.POINTER(_I), _I, _P],
 }
 # pointer table, its length, int table, its length, eps, dh^-0.5, stream
 # (the tables are laid out in csrc/fusion.cuh and filled by kernels/xattn.py)

@@ -3,8 +3,12 @@ CUDA kernel.
 
 Replaces the TPU kernel `multimodalemotionrecognition_tpu/ops/
 pallas_conv_fe.py::_conv_kernel` (via `fused_conv_layer`), which
-`models/wavlm.py` calls for the conv layers L1..L6.  The CUDA source and its
-design note are in `csrc/conv_fe.cu`.
+`models/wavlm.py` calls for the conv layers L1..L6.  Two CUDA sources, each
+with its design note: `csrc/conv_fe_tc.cu`, an implicit GEMM fed by TMA and
+run by wgmma on the tensor cores, for bfloat16 without the input-side GELU;
+`csrc/conv_fe.cu`, float32 FMAs on CUDA cores, for float32 and for
+`gelu_input=True`.  Which one runs is decided by the arguments alone
+(`tensor_core_route`).
 
 `fused_conv_layer` keeps the JAX signature: `y` is the stride-reshaped
 input [B, rows, stride*cin] (a free view of the NWC [B, rows*stride, cin]
@@ -15,8 +19,9 @@ never read, so the caller pads nothing for the kernel's sake.  The result is
 are unspecified.
 
 For a CPU tensor the wrapper runs `fused_conv_layer_plain`, the same
-function in plain PyTorch.  For a CUDA tensor it launches the kernel or
-raises.  `fused_conv_layer.launches` counts kernel launches.
+function in plain PyTorch.  For a CUDA tensor it launches one of the two
+kernels or raises.  `fused_conv_layer.launches` counts kernel launches of
+either.
 
 The kernel has no backward (neither has the TPU kernel): the wrapper raises
 when a gradient is asked through it, so training runs it only on a frozen
@@ -25,16 +30,52 @@ feature extractor.
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import functools
+from typing import List, Optional, Tuple
 
 import torch
 from torch.nn import functional as F
 
 from multimodalemotionrecognition_torch.kernels.build import check, load_library
 
-__all__ = ["fused_conv_layer", "fused_conv_layer_plain"]
+__all__ = ["conv_tile_plan", "fused_conv_layer", "fused_conv_layer_plain", "tensor_core_route"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
+_BK = 64  # the tensor-core kernel's K step: kBK in csrc/conv_fe_tc.cu
+_MAX_STEPS = 128  # kMaxSteps there
+
+
+def conv_tile_plan(k: int, stride: int, cin: int, bk: int = _BK) -> List[Tuple[int, int, int]]:
+    """The tensor-core kernel's K loop over the k*cin reduction, one entry
+    per bk-deep step: (row shift, column, w_flat row).  With y viewed as the
+    2-D [B*rows, stride*cin] matrix Y2, step i of output row m reads the box
+    Y2[m + shift, col : col + bk] against w_flat[w_row : w_row + bk]: the
+    reduction index kk lies at Y2[m + kk // (stride*cin), kk % (stride*cin)],
+    so a tap that reaches into the next input row is a row shift (the TPU
+    kernel's halo).  Needs bk to divide cin."""
+    if cin % bk:
+        raise ValueError(f"cin={cin} is not a multiple of the K step {bk}")
+    s_cin = stride * cin
+    return [(kk0 // s_cin, kk0 % s_cin, kk0) for kk0 in range(0, k * cin, bk)]
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_array(k: int, stride: int, cin: int):
+    plan = conv_tile_plan(k, stride, cin)
+    return (ctypes.c_int * (3 * len(plan)))(*(x for step in plan for x in step)), len(plan)
+
+
+def tensor_core_route(y: torch.Tensor, w_flat: torch.Tensor, k: int, cin: int,
+                      gelu_input: bool) -> bool:
+    """True when `fused_conv_layer` runs the tensor-core kernel on these
+    arguments: bfloat16, no input-side GELU, cin a multiple of 64, k*cin <=
+    8192 and cout a multiple of 8.  Otherwise the CUDA-core kernel runs.
+    The choice reads dtypes, flags and shapes only: a bfloat16 operand that
+    is not 16-byte aligned (TMA's rule) is refused by the kernel with an
+    error, never sent to the slower kernel."""
+    return (y.dtype == torch.bfloat16 and not gelu_input and cin % _BK == 0
+            and k * cin <= _MAX_STEPS * _BK and w_flat.shape[1] % 8 == 0)
 
 
 def fused_conv_layer_plain(
@@ -69,7 +110,11 @@ def fused_conv_layer(
     gelu_output: bool = False,
     t_in: Optional[int] = None,
 ) -> torch.Tensor:
-    """-> conv output [B, rows, cout] in y's dtype (rows >= t_out unspecified)."""
+    """-> conv output [B, rows, cout] in y's dtype (rows >= t_out unspecified).
+
+    On the card, bfloat16 without `gelu_input` runs on the tensor cores
+    (`csrc/conv_fe_tc.cu`; see `tensor_core_route` for the shapes it takes);
+    float32 and `gelu_input=True` run the CUDA-core kernel (`csrc/conv_fe.cu`)."""
     if y.ndim != 3 or w_flat.ndim != 2:
         raise ValueError(
             f"y must be [B, rows, stride*cin] and w_flat [k*cin, cout], got "
@@ -102,16 +147,23 @@ def fused_conv_layer(
         raise ValueError(f"unsupported device {y.device}")
 
     lib = load_library()
-    fn = lib.emo_conv_fe_f32 if y.dtype == torch.float32 else lib.emo_conv_fe_bf16
     cout = w_flat.shape[1]
     out = torch.empty(b, rows, cout, dtype=y.dtype, device=y.device)
+    shape = (b, rows, t_in, k, stride, cin, cout)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            y.data_ptr(), w_flat.data_ptr(), out.data_ptr(),
-            b, rows, t_in, k, stride, cin, cout,
-            int(gelu_input), int(gelu_output), stream,
-        )
+        if tensor_core_route(y, w_flat, k, cin, gelu_input):
+            plan, steps = _plan_array(k, stride, cin)
+            err = lib.emo_conv_fe_wgmma_bf16(
+                y.data_ptr(), w_flat.data_ptr(), out.data_ptr(), *shape,
+                int(gelu_output), plan, steps, stream,
+            )
+        else:
+            fn = lib.emo_conv_fe_f32 if y.dtype == torch.float32 else lib.emo_conv_fe_bf16
+            err = fn(
+                y.data_ptr(), w_flat.data_ptr(), out.data_ptr(), *shape,
+                int(gelu_input), int(gelu_output), stream,
+            )
     check(lib, err, "fused_conv_layer")
     fused_conv_layer.launches += 1
     return out

@@ -15,12 +15,15 @@
 //
 // What bounds it on an H100: at the serving shapes (B = 8, Cin = Cout = 512,
 // k = 3 for L1..L4 and 2 for L5..L6, t_out = 4799 ... 149) it is ~117 GFLOP
-// per forward over ~0.47 GB of float32 activations in and out (half that in
-// bf16): 250-500 FLOP per byte, at or above the ridge, so compute bound.  The design below runs that work on CUDA cores in float32
-// (a classic 64 x 64 tile, 16-deep, 4 x 4 outputs per thread from shared
-// memory), so it is bound by the FMA rate, not by tensor cores; the GELUs
-// ride in the load and the epilogue so no activation pass touches device
-// memory.  Tensor cores (wgmma with TMA-fed tiles) are the later step.
+// per forward over ~0.47 GB of float32 activations in and out: 250-500 FLOP
+// per byte, at or above the ridge, so compute bound.  This kernel runs that
+// work on CUDA cores in float32 (a classic 64 x 64 tile, 16-deep, 4 x 4
+// outputs per thread from shared memory), so it is bound by the FMA rate;
+// the GELUs ride in the load and the epilogue so no activation pass touches
+// device memory.  It serves float32, where with TF32 off no tensor-core
+// instruction gives float32's result (cuDNN's conv1d runs float32 on CUDA
+// cores too and takes as long), and `gelu_input`.  bfloat16 without
+// `gelu_input` runs on the tensor cores in `conv_fe_tc.cu`.
 //
 // Rows at or past t_out are not written (the caller's buffer keeps
 // whatever it held); input rows at or past t_in are never read.

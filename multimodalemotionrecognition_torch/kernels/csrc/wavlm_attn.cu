@@ -18,7 +18,12 @@
 // device memory and reads them back, in four launches plus the head
 // transposes.
 //
-// Design: three launches and no score tensor in device memory.
+// Design: three launches and no score tensor in device memory.  In
+// bfloat16 (dh = 64, seq_len <= 160) launches (a) and (b) run on the tensor
+// cores (`wavlm_attn_tc.cuh`, mma.sync of bf16 into float32: an exact
+// softmax over the whole score row held in registers, and a 64 x 64-tiled
+// out-projection); in float32, and in bfloat16 beyond those shapes, all
+// three run on CUDA cores:
 //  (a) wavlm_attn_core: one block per (query tile of 32 rows, head, batch).
 //      K_h and V_h (seq_len x 64, float32) sit in shared memory; each warp
 //      owns one query row at a time, computes its scores into a per-warp
@@ -31,12 +36,11 @@
 //      and the LayerNorm in one block per 8 whole rows; every block then
 //      re-read all of W_o and it took ~0.4 ms of K1's 0.53 ms at B = 8.
 //  (c) wavlm_attn_ln: one warp per row, the LayerNorm from registers, one
-//      write in the compute dtype.
-// The query row of (a), the tile product of (b) and the LayerNorm of (c) live
-// in `wavlm_sublayer.cuh`, shared with the batch-tiled kernel
-// (`wavlm_attn_tiled.cu`).
-// All use CUDA-core FMAs in float32: simple and right first; tensor cores
-// (wgmma) and fewer launches are later work.
+//      write in the compute dtype (both dtypes).
+// The CUDA-core query row of (a), the tile product of (b) and the LayerNorm
+// of (c) live in `wavlm_sublayer.cuh`, shared with the batch-tiled kernel
+// (`wavlm_attn_tiled.cu`), which stays on CUDA cores: K6 gives K1's bits in
+// float32 and agrees with K1 within rounding in bfloat16.
 //
 // Rows >= seq_len are neither computed nor written.
 //
@@ -49,6 +53,9 @@
 // stride is the padded Tp, as in the TPU kernel.  The backward also reads
 // the two scratch buffers: ctx and the pre-LayerNorm rows.
 
+#include <type_traits>
+
+#include "wavlm_attn_tc.cuh"
 #include "wavlm_sublayer.cuh"
 
 namespace {
@@ -167,28 +174,43 @@ int launch(const void* hidden, const void* q, const void* k, const void* v,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int dh = E / H;
 
-  const size_t smem_a = sizeof(float) * ((size_t)seq_len * (2 * dh + 1) +
-                                         kAttnWarps * (dh + seq_len));
-  if (smem_a > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      wavlm_attn_core<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
-  if (err != cudaSuccess) return err;
-  dim3 grid_a((seq_len + kAttnRows - 1) / kAttnRows, H, B);
-  wavlm_attn_core<T><<<grid_a, kAttnWarps * 32, smem_a, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(gate), static_cast<const float*>(bias),
-      static_cast<T*>(ctx), Tp, seq_len, E, H, (unsigned)seed, attn_thr, attn_inv);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
   const int M = B * Tp;
-  dim3 grid_b((E + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  wavlm_attn_out_proj<T><<<grid_b, kGemmThreads, 0, stream>>>(
-      static_cast<const T*>(ctx), static_cast<const T*>(hidden),
-      static_cast<const T*>(wo), static_cast<const float*>(bo),
-      static_cast<float*>(proj), M, Tp, seq_len, E, (unsigned)seed, hid_thr, hid_inv);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  // bfloat16 at dh = 64 and seq_len <= 160: (a) and (b) on the tensor cores.
+  bool tensor_cores = false;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    tensor_cores = dh == emo::tc::kHeadDim && seq_len <= emo::tc::kMaxKeys;
+  if (tensor_cores) {
+    const cudaError_t err = emo::tc::launch_core_and_proj(
+        static_cast<const __nv_bfloat16*>(hidden), static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
+        static_cast<const float*>(gate), static_cast<const float*>(bias),
+        static_cast<const __nv_bfloat16*>(wo), static_cast<const float*>(bo),
+        static_cast<__nv_bfloat16*>(ctx), static_cast<float*>(proj), B, Tp, seq_len, E, H,
+        (unsigned)seed, attn_thr, attn_inv, hid_thr, hid_inv, stream);
+    if (err != cudaSuccess) return err;
+  } else {
+    const size_t smem_a = sizeof(float) * ((size_t)seq_len * (2 * dh + 1) +
+                                           kAttnWarps * (dh + seq_len));
+    if (smem_a > kMaxSmem) return cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        wavlm_attn_core<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
+    if (err != cudaSuccess) return err;
+    dim3 grid_a((seq_len + kAttnRows - 1) / kAttnRows, H, B);
+    wavlm_attn_core<T><<<grid_a, kAttnWarps * 32, smem_a, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const float*>(gate), static_cast<const float*>(bias),
+        static_cast<T*>(ctx), Tp, seq_len, E, H, (unsigned)seed, attn_thr, attn_inv);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+
+    dim3 grid_b((E + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+    wavlm_attn_out_proj<T><<<grid_b, kGemmThreads, 0, stream>>>(
+        static_cast<const T*>(ctx), static_cast<const T*>(hidden),
+        static_cast<const T*>(wo), static_cast<const float*>(bo),
+        static_cast<float*>(proj), M, Tp, seq_len, E, (unsigned)seed, hid_thr, hid_inv);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
 
   emo::wavlm_attn_ln<T><<<(M + kLnWarps - 1) / kLnWarps, kLnWarps * 32, 0, stream>>>(
       static_cast<const float*>(proj), static_cast<const float*>(lns),

@@ -6,6 +6,12 @@ pallas_wavlm_attn.py::_sublayer_kernel`, K2 its backward
 `_sublayer_bwd_kernel` (both reached through `wavlm_fused_attention_sublayer`,
 which `models/wavlm.py` calls once per encoder layer).  The CUDA sources and
 their design notes are `csrc/wavlm_attn.cu` and `csrc/wavlm_attn_bwd.cu`.
+K1 is three launches: the attention core, the out-projection and the
+LayerNorm.  In bfloat16 with a head width of 64 and `seq_len` <= 160 (the
+WavLM models: 64 and 149) the first two run on the tensor cores
+(`csrc/wavlm_attn_tc.cuh`, mma.sync of bf16 into float32); in float32, and
+in bfloat16 at other shapes, on CUDA cores.  The choice follows from the
+arguments alone.
 
 `wavlm_attention_sublayer` keeps the JAX function's public layout: q/k/v in
 their natural [B, Tp, E] layout with q pre-scaled by dh^-0.5, the per-query

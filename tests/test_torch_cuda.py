@@ -26,6 +26,7 @@ from multimodalemotionrecognition_torch.kernels import (
     wavlm_attention_sublayer_tiled_plain,
     xattn_params_from_state_dict,
 )
+from multimodalemotionrecognition_torch.kernels.conv_fe import tensor_core_route
 from multimodalemotionrecognition_torch.models.factory import init_parameters
 from multimodalemotionrecognition_torch.models.fusion import FusionModel
 from multimodalemotionrecognition_torch.runtime.quant import quantize_linears_int8
@@ -40,6 +41,21 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _kernel_names(fn):
+    """Names of the CUDA kernels fn() launches (torch.profiler).  Warmed up,
+    and three calls in the window: the tracer can miss the first launches
+    after it starts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages() if e.device_type.name == "CUDA"}
 
 
 def _sublayer_inputs(b, h, tp, dtype, device, seed=0):
@@ -89,7 +105,10 @@ def test_tiled_attention_kernel_matches_plain_and_k1_for_every_tile(cuda, dtype,
     torch.cuda.synchronize()
     assert torch.isfinite(ref).all()
     assert (ref.float() - want.float()).abs().max().item() <= atol
-    assert torch.equal(ref[:, :seq], k1[:, :seq])
+    if dtype == torch.float32:  # K1's CUDA-core device code: the same bits
+        assert torch.equal(ref[:, :seq], k1[:, :seq])
+    else:  # K1 runs bf16 on the tensor cores, K6 on CUDA cores: another sum order
+        assert (ref[:, :seq].float() - k1[:, :seq].float()).abs().max().item() <= atol
     tiles = [g for g in (2, 4, 8) if b % g == 0]
     for g in tiles:
         assert torch.equal(wavlm_attention_sublayer_tiled(g, *args, h, seq), ref), g
@@ -186,6 +205,177 @@ def test_conv_kernel_matches_plain(cuda, dtype, atol, rtol, t_in, k, gelu_in, ge
     ref = want[:, :t_out].float()
     err = (got[:, :t_out].float() - ref).abs().max().item()
     assert err <= max(atol, rtol * ref.abs().max().item()), err
+
+
+@pytest.mark.parametrize("dropout", [False, True], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("h,tp,seq", [(12, 149, 149), (12, 149, 131), (12, 160, 149), (12, 160, 57),
+                                      (4, 96, 77)])
+def test_attention_tensor_core_path_matches_plain(cuda, h, tp, seq, b, dropout):
+    """bf16 K1 on the tensor cores (dh = 64, seq_len <= 160) against its
+    plain version, rows < seq_len, with and without both dropouts."""
+    args = _sublayer_inputs(b, h, tp, torch.bfloat16, cuda, seed=11)
+    kw = dict(num_heads=h, seq_len=seq)
+    if dropout:
+        kw.update(attn_dropout=0.1, hidden_dropout=0.1, dropout_seed=424242)
+    got = wavlm_attention_sublayer(*args, **kw)
+    want = wavlm_attention_sublayer_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got[:, :seq]).all()
+    err = (got[:, :seq].float() - want[:, :seq].float()).abs().max().item()
+    assert err <= 3e-2, err
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, {"attn_core_mma", "out_proj_mma"}),
+                                         (torch.float32, {"wavlm_attn_core", "wavlm_attn_out_proj"})])
+def test_attention_kernel_route_follows_the_dtype(cuda, dtype, route):
+    args = _sublayer_inputs(2, 12, 149, dtype, cuda)
+    names = _kernel_names(lambda: wavlm_attention_sublayer(*args, num_heads=12, seq_len=149))
+    for name in route:
+        assert any(name in n for n in names), (name, names)
+    assert any("wavlm_attn_ln" in n for n in names), names
+
+
+@pytest.mark.parametrize("dropout", [False, True], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("b,tp,seq", [(2, 249, 249), (1, 249, 231), (3, 161, 161)])
+def test_attention_bf16_past_160_keys_runs_the_cuda_core_kernels(cuda, b, tp, seq, dropout):
+    """bf16 K1 with seq_len > 160 (a clip longer than about 3.2 s) keeps the
+    CUDA-core core and out-projection: against its plain version, rows <
+    seq_len, with and without both dropouts, and the kernels by name."""
+    args = _sublayer_inputs(b, 12, tp, torch.bfloat16, cuda, seed=13)
+    kw = dict(num_heads=12, seq_len=seq)
+    if dropout:
+        kw.update(attn_dropout=0.1, hidden_dropout=0.1, dropout_seed=8642)
+    got = wavlm_attention_sublayer(*args, **kw)
+    want = wavlm_attention_sublayer_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got[:, :seq]).all()
+    err = (got[:, :seq].float() - want[:, :seq].float()).abs().max().item()
+    assert err <= 3e-2, err
+    names = _kernel_names(lambda: wavlm_attention_sublayer(*args, **kw))
+    for name in ("wavlm_attn_core", "wavlm_attn_out_proj", "wavlm_attn_ln"):
+        assert any(name in n for n in names), (name, names)
+    assert not any("mma" in n for n in names), names
+
+
+def _misaligned(x):
+    """x's values in a contiguous tensor whose data starts 2 bytes past a
+    16-byte boundary."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
+
+
+def test_bf16_tensor_core_kernels_refuse_misaligned_operands(cuda):
+    """K3's and K1's tensor-core launchers raise on an operand that is not
+    16-byte aligned; neither sends it to its CUDA-core kernel."""
+    cin = 512
+    y = torch.randn(2, 300, 2 * cin, device=cuda, dtype=torch.bfloat16)
+    w = torch.randn(3 * cin, 512, device=cuda, dtype=torch.bfloat16) * 0.03
+    assert tensor_core_route(_misaligned(y), w, 3, cin, False)
+    before = fused_conv_layer.launches
+    for yy, ww in ((_misaligned(y), w), (y, _misaligned(w))):
+        with pytest.raises(RuntimeError, match="fused_conv_layer: CUDA error"):
+            fused_conv_layer(yy, ww, 3, 2, cin, gelu_output=True)
+    assert fused_conv_layer.launches == before
+    args = _sublayer_inputs(2, 12, 149, torch.bfloat16, cuda)
+    args[1] = _misaligned(args[1])
+    before = wavlm_attention_sublayer.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        wavlm_attention_sublayer(*args, num_heads=12, seq_len=149)
+    assert wavlm_attention_sublayer.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_behind_the_kernel_forward(cuda, dtype):
+    """K2's ten gradients at the serving shape with seq_len < Tp and both
+    dropouts, reading the context and pre-LayerNorm rows the forward wrote
+    (in bf16 the tensor-core K1); two runs bit-identical."""
+    b, h, tp, seq = 8, 12, 149, 131
+    args = [t.requires_grad_() for t in _sublayer_inputs(b, h, tp, dtype, cuda, seed=5)]
+    statics = dict(num_heads=h, seq_len=seq, attn_dropout=0.1, hidden_dropout=0.1,
+                   dropout_seed=97531)
+    g = torch.Generator().manual_seed(6)
+    dout = torch.randn(b, tp, h * 64, generator=g).to(cuda, dtype)
+    got = torch.autograd.grad(wavlm_attention_sublayer(*args, **statics), args, dout)
+    again = torch.autograd.grad(wavlm_attention_sublayer(*args, **statics), args, dout)
+    want = wavlm_attention_sublayer_backward_plain(dout, *(a.detach() for a in args), **statics)
+    torch.cuda.synchronize()
+    for name, x, y, z in zip(GRAD_NAMES, got, want, again):
+        assert torch.isfinite(x).all(), name
+        err = (x.float() - y.float()).abs().max().item()
+        assert err <= GRAD_TOL[dtype] * y.float().abs().max().item(), (name, err)
+        assert torch.equal(x, z), f"d{name} differs between two runs"
+
+
+# The six conv layers of WavLM-base after L0, at a 3 s clip: (k, t_in); every
+# t_in is odd, so the last input row is half past t_in and the last M tile partial.
+CONV_LAYERS = [(3, 9599), (3, 4799), (3, 2399), (3, 1199), (2, 599), (2, 299)]
+
+
+@pytest.mark.parametrize("gelu_in,gelu_out", [(False, True), (False, False), (True, False),
+                                              (True, True)])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("layer", range(1, 7), ids=lambda i: f"L{i}")
+def test_conv_kernel_bf16_matches_plain_on_every_layer(cuda, layer, b, gelu_in, gelu_out):
+    """bf16 K3 on each layer shape; with gelu_input the CUDA-core kernel
+    runs (the tensor-core kernel does not take it).  NaN past t_in in the
+    buffer reaches no row < t_out."""
+    k, t_in = CONV_LAYERS[layer - 1]
+    cin = cout = 512
+    s = 2
+    rows = -(-t_in // s)
+    g = torch.Generator().manual_seed(layer)
+    y = torch.randn(b, rows, s * cin, generator=g).to(cuda, torch.bfloat16)
+    y.view(b, rows * s, cin)[:, t_in:] = float("nan")
+    w = (torch.randn(k * cin, cout, generator=g) * (k * cin) ** -0.5).to(cuda, torch.bfloat16)
+    assert tensor_core_route(y, w, k, cin, gelu_in) == (not gelu_in)
+    flags = dict(gelu_input=gelu_in, gelu_output=gelu_out, t_in=t_in)
+    before = fused_conv_layer.launches
+    got = fused_conv_layer(y, w, k, s, cin, **flags)
+    want = fused_conv_layer_plain(y, w, k, s, cin, **flags)
+    torch.cuda.synchronize()
+    assert fused_conv_layer.launches == before + 1
+    t_out = (t_in - k) // s + 1
+    ref = want[:, :t_out].float()
+    assert torch.isfinite(got[:, :t_out]).all()
+    err = (got[:, :t_out].float() - ref).abs().max().item()
+    assert err <= 2e-2 * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize(
+    "cin,cout,k,s,t_in",
+    [(64, 200, 3, 2, 301), (128, 72, 2, 2, 97), (64, 136, 5, 2, 203), (64, 64, 4, 3, 95)],
+    ids=["cout200", "cout72", "k5_shift2", "stride3"],
+)
+def test_conv_tensor_core_kernel_on_other_shapes(cuda, cin, cout, k, s, t_in):
+    """Shapes the tensor-core route takes beyond WavLM's: a partial last
+    column tile (cout not a multiple of 128), taps two input rows ahead,
+    stride 3; against the plain version."""
+    rows = -(-t_in // s)
+    g = torch.Generator().manual_seed(cout + k)
+    y = torch.randn(3, rows, s * cin, generator=g).to(cuda, torch.bfloat16)
+    w = (torch.randn(k * cin, cout, generator=g) * (k * cin) ** -0.5).to(cuda, torch.bfloat16)
+    assert tensor_core_route(y, w, k, cin, False)
+    got = fused_conv_layer(y, w, k, s, cin, gelu_output=True, t_in=t_in)
+    want = fused_conv_layer_plain(y, w, k, s, cin, gelu_output=True, t_in=t_in)
+    torch.cuda.synchronize()
+    t_out = (t_in - k) // s + 1
+    ref = want[:, :t_out].float()
+    err = (got[:, :t_out].float() - ref).abs().max().item()
+    assert err <= 2e-2 * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("gelu_in,kernel", [(False, "conv_fe_wgmma"), (True, "conv_fe_kernel")])
+def test_conv_kernel_route_follows_the_arguments(cuda, gelu_in, kernel):
+    cin = 512
+    y = torch.randn(2, 300, 2 * cin, device=cuda, dtype=torch.bfloat16)
+    w = torch.randn(3 * cin, 512, device=cuda, dtype=torch.bfloat16) * 0.03
+    names = _kernel_names(lambda: fused_conv_layer(y, w, 3, 2, cin, gelu_input=gelu_in))
+    assert any(kernel in n for n in names), names
+    assert len([n for n in names if "conv_fe" in n]) == 1, names
 
 
 class _Tower(torch.nn.Module):
