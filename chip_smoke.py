@@ -29,7 +29,8 @@ Phases (the first failure ends the run with a non-zero exit code):
                kernel's bound: the larger of its bytes over 3.35 TB/s and its
                operations over the peak rate of their type.  K1's device time
                per launch by kernel name (`torch.profiler`), in bfloat16.
-               In bfloat16 K3 and K1 run on the tensor cores (wgmma, mma.sync).
+               In bfloat16 K3, K1 and K2 run on the tensor cores (wgmma,
+               mma.sync).
   4. serve   - the flagship model (xattn + WavLM-base 12x768 + ResNet18,
                concat head, mean pooling, d_model 128) with random weights
                from a seeded generator, saved as a reference-format .pt and
@@ -71,7 +72,8 @@ Phases (the first failure ends the run with a non-zero exit code):
                the hash's plain version; K1's output and all ten of K2's
                gradients (with and without dropout, from a seeded cotangent)
                against the plain versions; two runs of K2 bit-identical;
-               device times behind the plug, and K2's bound.
+               device times behind the plug, and K2's bound; K2's device
+               time per launch by kernel name in bfloat16 (`torch.profiler`).
   9. train   - `EmotionTrainer` on the full-width flagship, two-stage, batch
                16 (uint8 video with brightness and noise replayed on the
                device, float32 audio), in float32 and in bfloat16 compute
@@ -638,8 +640,15 @@ def check_train_kernels(dev, gen):
                   f"gradient's largest entry (tol {GRAD_TOL[dtype]}), two runs bit-identical; "
                   f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {limit['bound_ms']:.5f} ms "
                   f"({limit['bound_by']}; {flops / 1e9:.3f} GFLOP)")
-            k2_report[f"{name}_{label.replace(' ', '_')}"] = {
+            key = f"{name}_{label.replace(' ', '_')}"
+            k2_report[key] = {
                 "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **limit, "library_ms": None}
+            if dtype == torch.bfloat16:
+                split = profile_steps(kernel, n=5)["kernels"]
+                print(f"K2 {name} B={b} {label} per launch: "
+                      + ", ".join(f"{kernel_name} {t:.4f} ms" for kernel_name, t in split.items())
+                      + f" (sum {sum(split.values()):.4f} ms; CUDA events {ms:.4f} ms)")
+                k2_report[key]["split_ms"] = split
     return k1_report, k2_report
 
 
@@ -1400,9 +1409,10 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("  ptxas", line.split("info    :")[-1].strip())
     tensor_core = {f: n for f, n in spills.items()
-                   if any(k in f for k in ("conv_fe_wgmma", "attn_core_mma", "out_proj_mma"))}
+                   if any(k in f for k in ("conv_fe_wgmma", "attn_core_mma", "out_proj_mma",
+                                           "bwd_proj_mma", "bwd_attn_mma"))}
     print(f"build: spill bytes of the tensor-core kernels {tensor_core}")
-    if len(tensor_core) < 4 or any(tensor_core.values()):
+    if len(tensor_core) < 7 or any(tensor_core.values()):
         raise AssertionError(f"tensor-core kernels missing from the build log or spilling: {tensor_core}")
 
     gen = torch.Generator().manual_seed(SEED)
@@ -1457,8 +1467,10 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": csrc + source,
                         "replaces": replaces, "launches": launches[name], **rep})
     kernels[0]["float32"], kernels[1]["float32"] = k1["float32"], k3["float32"]
-    # bfloat16 on the tensor cores (the rows above); float32 on CUDA cores.
+    # bfloat16 on the tensor cores (the rows above; K2: its variants), float32 on CUDA cores.
     kernels[0]["sources"] = [csrc + "wavlm_attn.cu", csrc + "wavlm_attn_tc.cuh", csrc + "hopper.cuh"]
+    kernels[4]["sources"] = [csrc + "wavlm_attn_bwd.cu", csrc + "wavlm_attn_bwd_tc.cuh",
+                             csrc + "hopper.cuh"]
     kernels[1]["sources"] = [csrc + "conv_fe_tc.cu", csrc + "hopper.cuh", csrc + "conv_fe.cu"]
     # K1's device time per launch in bfloat16, at each batch it was held at.
     kernels[0]["split_ms"] = {"b8": k1["bfloat16"]["split_ms"], **{

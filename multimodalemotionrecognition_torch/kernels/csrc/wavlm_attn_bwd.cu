@@ -44,18 +44,27 @@
 //
 // What bounds it on an H100: at B = 16, T = 149, E = 768 the score recompute
 // and the seven gradient products need 8.4 GFLOP (0.12 ms at the float32
-// peak outside the tensor cores; this kernel does 9.4, recomputing scores
-// and dprobs in both attention passes) against ~85 MB of float32 operands
-// (0.03 ms), so operations bound it in float32.  Like K1 it uses CUDA-core
-// FMAs from shared memory, float32 accumulation of operands rounded to the
-// compute dtype where the TPU kernel rounds them; tensor cores (wgmma) are
-// later work.
+// peak outside the tensor cores; launches (4) and (6) do 9.4, recomputing
+// scores and dprobs in both attention passes) against ~85 MB of float32
+// operands (0.03 ms), so operations bound it in float32, where launches
+// (1)-(6) run on CUDA cores with float32 FMAs from shared memory and float32
+// accumulation of operands rounded to the compute dtype where the TPU kernel
+// rounds them.
+//
+// bfloat16 with dh = 64 and seq_len <= 160 (K1's tensor-core rule) takes the
+// tensor cores instead for (3)-(6): `wavlm_attn_bwd_tc.cuh`, one launch for
+// both out-projection products and one attention launch per (head, element)
+// that computes the scores once, all on mma.sync of bf16 into float32.
+// There the bytes (~46 MB at B = 16: 0.014 ms) bound it.  The order is then
+// (1), (2), the two products, the attention backward, (5).
 //
 // Rows and columns at or past seq_len do not exist for this kernel: it never
 // reads them (K1 leaves them unset) and their gradients are not written (the
 // wrapper hands in zeroed outputs when seq_len < Tp).
 
-#include "common.cuh"
+#include <type_traits>
+
+#include "wavlm_attn_bwd_tc.cuh"
 
 namespace {
 
@@ -481,6 +490,20 @@ int launch(const void* dout, const void* q, const void* k, const void* v,
   const T* dproj_c = static_cast<const T*>(dproj);
   const T* dctx_c = static_cast<const T*>(dctx);
   cudaError_t err;
+  // bfloat16 at dh = 64 and seq_len <= 160: (3)-(6) on the tensor cores,
+  // whose operands move in 16-byte pieces: misaligned pointers are refused
+  // before anything runs.
+  bool tensor_cores = false;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    tensor_cores = dh == emo::tcb::kHeadDim && seq_len <= emo::tcb::kMaxKeys;
+  if (tensor_cores &&
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(wo) |
+        reinterpret_cast<uintptr_t>(ctx) | reinterpret_cast<uintptr_t>(dproj) |
+        reinterpret_cast<uintptr_t>(dctx) | reinterpret_cast<uintptr_t>(dq) |
+        reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv) |
+        reinterpret_cast<uintptr_t>(dwo)) & 15))
+    return cudaErrorMisalignedAddress;
 
   bwd_ln<T><<<(M + kLnWarps - 1) / kLnWarps, kLnWarps * 32, 0, stream>>>(
       static_cast<const float*>(pre), static_cast<const T*>(dout),
@@ -498,6 +521,23 @@ int launch(const void* dout, const void* q, const void* k, const void* v,
       static_cast<const float*>(colpart), static_cast<float*>(dlns),
       static_cast<float*>(dlnb), static_cast<float*>(dbo), col_chunks, E);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const size_t per_batch = (size_t)H * Tp * Tp;
+  if (tensor_cores) {
+    using bf16 = __nv_bfloat16;
+    err = emo::tcb::launch_proj_and_attn(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const float*>(gate), static_cast<const float*>(bias),
+        static_cast<const bf16*>(wo), static_cast<const bf16*>(ctx),
+        static_cast<const bf16*>(dproj), static_cast<bf16*>(dctx), static_cast<bf16*>(dq),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<float*>(dgate),
+        static_cast<float*>(dwo), static_cast<float*>(dbias_part), B, Tp, seq_len, E, H,
+        useed, attn_thr, attn_inv, stream);
+    if (err != cudaSuccess) return err;
+    bwd_dbias_reduce<<<(unsigned)((per_batch + 255) / 256), 256, 0, stream>>>(
+        static_cast<const float*>(dbias_part), static_cast<float*>(dbias), B, H, Tp, seq_len);
+    return cudaGetLastError();
+  }
 
   // dctx[m][i] = sum_n dproj[m][n] * wo[i][n]
   dim3 grid_dctx((E + kBN - 1) / kBN, (M + kBM - 1) / kBM);
@@ -531,7 +571,6 @@ int launch(const void* dout, const void* q, const void* k, const void* v,
       attn_thr, attn_inv);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  const size_t per_batch = (size_t)H * Tp * Tp;
   bwd_dbias_reduce<<<(unsigned)((per_batch + 255) / 256), 256, 0, stream>>>(
       static_cast<const float*>(dbias_part), static_cast<float*>(dbias), B, H, Tp, seq_len);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;

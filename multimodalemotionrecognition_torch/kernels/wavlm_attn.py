@@ -10,8 +10,11 @@ K1 is three launches: the attention core, the out-projection and the
 LayerNorm.  In bfloat16 with a head width of 64 and `seq_len` <= 160 (the
 WavLM models: 64 and 149) the first two run on the tensor cores
 (`csrc/wavlm_attn_tc.cuh`, mma.sync of bf16 into float32); in float32, and
-in bfloat16 at other shapes, on CUDA cores.  The choice follows from the
-arguments alone.
+in bfloat16 at other shapes, on CUDA cores.  K2 follows the same rule
+(`tensor_core_route`): on that route its out-projection products and its
+attention backward run on the tensor cores (`csrc/wavlm_attn_bwd_tc.cuh`,
+six launches in all), elsewhere on CUDA cores (eight launches).  The choice
+follows from the arguments alone.
 
 `wavlm_attention_sublayer` keeps the JAX function's public layout: q/k/v in
 their natural [B, Tp, E] layout with q pre-scaled by dh^-0.5, the per-query
@@ -48,8 +51,10 @@ from torch.nn import functional as F
 from multimodalemotionrecognition_torch.kernels.build import check, load_library
 
 __all__ = [
+    "backward_attention_smem_bytes",
     "drop_threshold",
     "hash_keep_plain",
+    "tensor_core_route",
     "wavlm_attention_sublayer",
     "wavlm_attention_sublayer_backward",
     "wavlm_attention_sublayer_backward_plain",
@@ -62,6 +67,30 @@ _MAX_SMEM = 227 * 1024
 _COL_ROWS = 32  # rows per column-sum partial: kColRows in csrc/wavlm_attn_bwd.cu
 _MASK32 = 0xFFFFFFFF
 _BATCH_STRIDE, _HEAD_STRIDE, _HIDDEN_OFFSET = 0x632BE59B, 0x9E3779B9, 0x7FEB352D
+# The tensor-core route: kHeadDim and kMaxKeys of csrc/wavlm_attn_tc.cuh and
+# csrc/wavlm_attn_bwd_tc.cuh; 72 bf16 per row of a Q/K/V/dctx tile there.
+_TC_HEAD_DIM, _TC_MAX_KEYS, _TC_ROW_STRIDE = 64, 160, 72
+
+
+def tensor_core_route(hidden: torch.Tensor, num_heads: int, seq_len: int) -> bool:
+    """True when K1 and K2 run their tensor-core kernels on these arguments:
+    bfloat16, a head width of 64 and `seq_len` <= 160.  Otherwise their
+    CUDA-core kernels run.  The choice reads the dtype and shapes only: a
+    bfloat16 operand that is not 16-byte aligned is refused by the kernel
+    with an error, never sent to the CUDA-core kernels."""
+    return (hidden.dtype == torch.bfloat16 and hidden.shape[-1] == _TC_HEAD_DIM * num_heads
+            and seq_len <= _TC_MAX_KEYS)
+
+
+def backward_attention_smem_bytes(seq_len: int) -> int:
+    """Shared memory of one block of K2's tensor-core attention backward
+    (`AttnPlan` in csrc/wavlm_attn_bwd_tc.cuh): Q, K, V and dctx of one
+    (head, element) in bf16, and P_d and dS as bf16 squares, all padded to
+    64 keys up to seq_len 64 and to 160 above."""
+    if not 1 <= seq_len <= _TC_MAX_KEYS:
+        raise ValueError(f"seq_len={seq_len} outside the tensor-core route (1 to {_TC_MAX_KEYS})")
+    keys = 64 if seq_len <= 64 else _TC_MAX_KEYS
+    return 2 * (4 * keys * _TC_ROW_STRIDE + 2 * keys * (keys + 8))
 
 
 # ---------------------------------------------------------------------------
@@ -382,7 +411,10 @@ def wavlm_attention_sublayer_backward(
             raise ValueError(f"{name} must be K1's contiguous {dtype} [B, Tp, E] buffer")
     if e > 1024:
         raise ValueError(f"E={e} > 1024 is not supported by the K2 kernel")
-    smem = 4 * (2 * seq_len * (dh + 1) + 16 * (dh + seq_len) + 3 * seq_len)
+    if tensor_core_route(hidden, h, seq_len):
+        smem = backward_attention_smem_bytes(seq_len)
+    else:
+        smem = 4 * (2 * seq_len * (dh + 1) + 16 * (dh + seq_len) + 3 * seq_len)
     if smem > _MAX_SMEM:
         raise ValueError(f"seq_len={seq_len} needs {smem} B of shared memory")
 
@@ -403,8 +435,9 @@ def wavlm_attention_sublayer_backward(
         torch.empty(b * tp, 4, dtype=f32, device=dev),  # per row: mean, rstd, two row means
         torch.empty(col_chunks, 3, e, dtype=f32, device=dev),  # column-sum partials
         torch.empty(b, h * tp, tp, dtype=f32, device=dev),  # bias partials, one per batch element
-        torch.empty(b, h * tp, dtype=f32, device=dev),  # log-sum-exp per (head, query)
-        torch.empty(b, h * tp, dtype=f32, device=dev),  # softmax row term per (head, query)
+        # CUDA-core route only: log-sum-exp and softmax row term per (head, query)
+        torch.empty(b, h * tp, dtype=f32, device=dev),
+        torch.empty(b, h * tp, dtype=f32, device=dev),
     )
     outputs = (dhidden, dq, dk, dv, dgate, dbias, dwo, dbo, dlns, dlnb)
     with torch.cuda.device(dev):

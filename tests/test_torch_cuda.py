@@ -21,12 +21,16 @@ from multimodalemotionrecognition_torch.kernels import (
     wavlm_attention_sublayer,
     wavlm_attention_sublayer_backward,
     wavlm_attention_sublayer_backward_plain,
+    wavlm_attention_sublayer_forward,
     wavlm_attention_sublayer_plain,
     wavlm_attention_sublayer_tiled,
     wavlm_attention_sublayer_tiled_plain,
     xattn_params_from_state_dict,
 )
 from multimodalemotionrecognition_torch.kernels.conv_fe import tensor_core_route
+from multimodalemotionrecognition_torch.kernels.wavlm_attn import (
+    tensor_core_route as attention_tensor_core_route,
+)
 from multimodalemotionrecognition_torch.models.factory import init_parameters
 from multimodalemotionrecognition_torch.models.fusion import FusionModel
 from multimodalemotionrecognition_torch.runtime.quant import quantize_linears_int8
@@ -58,9 +62,9 @@ def _kernel_names(fn):
     return {e.key for e in prof.key_averages() if e.device_type.name == "CUDA"}
 
 
-def _sublayer_inputs(b, h, tp, dtype, device, seed=0):
+def _sublayer_inputs(b, h, tp, dtype, device, seed=0, e=None):
     g = torch.Generator().manual_seed(seed)
-    e = h * 64
+    e = h * 64 if e is None else e
 
     def r(*shape, scale=1.0, shift=0.0, dt=dtype):
         return (torch.randn(*shape, generator=g) * scale + shift).to(device, dt)
@@ -308,6 +312,96 @@ def test_attention_backward_behind_the_kernel_forward(cuda, dtype):
         err = (x.float() - y.float()).abs().max().item()
         assert err <= GRAD_TOL[dtype] * y.float().abs().max().item(), (name, err)
         assert torch.equal(x, z), f"d{name} differs between two runs"
+
+
+# K2's kernels by route: the tensor-core ones (bf16, dh 64, seq_len <= 160)
+# and the CUDA-core ones, which that route must not launch.
+K2_TENSOR_CORE = ("bwd_proj_mma", "bwd_attn_mma")
+K2_CUDA_CORE = ("bwd_gemm", "bwd_attn_q", "bwd_attn_kv")
+
+
+@pytest.mark.parametrize(
+    "dtype,h,e,tp,seq,tensor_cores",
+    [(torch.bfloat16, 12, 768, 149, 149, True), (torch.bfloat16, 12, 768, 37, 37, True),
+     (torch.bfloat16, 4, 256, 96, 77, True), (torch.float32, 12, 768, 149, 149, False),
+     (torch.bfloat16, 12, 768, 161, 161, False), (torch.bfloat16, 4, 768, 37, 37, False)],
+    ids=["bf16-149", "bf16-37", "bf16-4heads-dh64", "f32", "bf16-161", "bf16-4heads-dh192"],
+)
+def test_attention_backward_route_follows_the_arguments(cuda, dtype, h, e, tp, seq, tensor_cores):
+    """K2 runs its tensor-core kernels on bf16 at head width 64 and seq_len <=
+    160 and its CUDA-core kernels elsewhere (kernel names by profiler), and
+    its ten gradients agree with the plain backward on either route."""
+    args = _sublayer_inputs(2, h, tp, dtype, cuda, seed=21, e=e)
+    kw = dict(num_heads=h, seq_len=seq, attn_dropout=0.1, hidden_dropout=0.1, dropout_seed=1357)
+    assert attention_tensor_core_route(args[0], h, seq) is tensor_cores
+    dout = torch.randn(2, tp, e, generator=torch.Generator().manual_seed(22)).to(cuda, dtype)
+    _, ctx, pre = wavlm_attention_sublayer_forward(*args, **kw)
+    got = wavlm_attention_sublayer_backward(dout, *args, ctx, pre, **kw)
+    want = wavlm_attention_sublayer_backward_plain(dout, *args, **kw)
+    torch.cuda.synchronize()
+    for name, x, y in zip(GRAD_NAMES, got, want):
+        assert torch.isfinite(x).all(), name
+        err = (x.float() - y.float()).abs().max().item()
+        assert err <= GRAD_TOL[dtype] * y.float().abs().max().item(), (name, err)
+    names = _kernel_names(lambda: wavlm_attention_sublayer_backward(dout, *args, ctx, pre, **kw))
+    ran, left_out = (K2_TENSOR_CORE, K2_CUDA_CORE) if tensor_cores else (K2_CUDA_CORE,
+                                                                         K2_TENSOR_CORE)
+    for name in ran + ("bwd_ln", "bwd_colsum", "bwd_dbias_reduce"):
+        assert any(name in n for n in names), (name, names)
+    for name in left_out:
+        assert not any(name in n for n in names), (name, names)
+
+
+def test_attention_backward_refuses_misaligned_bf16_operands(cuda):
+    """K2's tensor-core route raises on a bf16 operand that is not 16-byte
+    aligned and counts no launch; it never sends it to the CUDA-core kernels."""
+    h, tp = 12, 149
+    args = _sublayer_inputs(2, h, tp, torch.bfloat16, cuda, seed=23)
+    kw = dict(num_heads=h, seq_len=tp)
+    _, ctx, pre = wavlm_attention_sublayer_forward(*args, **kw)
+    dout = torch.randn(2, tp, h * 64, device=cuda, dtype=torch.bfloat16)
+    before = wavlm_attention_sublayer_backward.launches
+    for i in (1, 2, 3, 6, None):  # q, k, v, wo, then K1's context
+        bad = list(args)
+        bad_ctx = ctx
+        if i is None:
+            bad_ctx = _misaligned(ctx)
+        else:
+            bad[i] = _misaligned(args[i])
+        with pytest.raises(RuntimeError, match="wavlm_attention_sublayer_backward: CUDA error"):
+            wavlm_attention_sublayer_backward(dout, *bad, bad_ctx, pre, **kw)
+    assert wavlm_attention_sublayer_backward.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,tp,seq", [(2, 160, 149), (3, 64, 37), (2, 149, 131)])
+def test_attention_backward_never_reads_rows_past_seq_len(cuda, dtype, b, tp, seq):
+    """NaN in q, k, v, K1's context and pre-LayerNorm rows, hidden and the
+    cotangent at rows >= seq_len: all ten gradients are bit-equal to those
+    with zeros there, and the rows past seq_len of dhidden/dq/dk/dv are zero."""
+    h = 12
+    args = _sublayer_inputs(b, h, tp, dtype, cuda, seed=25)
+    kw = dict(num_heads=h, seq_len=seq, attn_dropout=0.1, hidden_dropout=0.1, dropout_seed=2468)
+    _, ctx, pre = wavlm_attention_sublayer_forward(*args, **kw)
+    dout = torch.randn(b, tp, h * 64, generator=torch.Generator().manual_seed(26)).to(cuda, dtype)
+
+    def padded(fill):
+        out = [t.clone() for t in (dout, *args[:4], ctx, pre)]
+        for t in out:
+            t[:, seq:] = fill
+        return out
+
+    results = []
+    for fill in (0.0, float("nan")):
+        d, hidden, q, k, v, c, p = padded(fill)
+        results.append(wavlm_attention_sublayer_backward(
+            d, hidden, q, k, v, *args[4:], c, p, **kw))
+    torch.cuda.synchronize()
+    for name, x, y in zip(GRAD_NAMES, *results):
+        assert torch.isfinite(y).all(), name
+        assert torch.equal(x, y), f"d{name} picked up a row past seq_len"
+    for x in results[1][:4]:
+        assert torch.count_nonzero(x[:, seq:]) == 0
 
 
 # The six conv layers of WavLM-base after L0, at a 3 s clip: (k, t_in); every
