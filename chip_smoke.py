@@ -27,10 +27,13 @@ Phases (the first failure ends the run with a non-zero exit code):
                from CUDA events, the library call's time where one PyTorch
                call computes the same function (K3: conv1d + gelu), and each
                kernel's bound: the larger of its bytes over 3.35 TB/s and its
-               operations over the peak rate of their type.  K1's device time
-               per launch by kernel name (`torch.profiler`), in bfloat16.
-               In bfloat16 K3, K1 and K2 run on the tensor cores (wgmma,
-               mma.sync).
+               operations over the peak rate of their type (float32: 3xTF32 on
+               the tensor cores, 495 / 3 TFLOP/s, beside the 67 TFLOP/s of
+               the CUDA cores).  K1's and K3's device time per launch by
+               kernel name (`torch.profiler`), which also names the kernel
+               each dtype ran.  K3 and K1 run on the tensor cores in both
+               dtypes (wgmma, mma.sync; float32 as 3xTF32 split products), K2
+               in bfloat16.
   4. serve   - the flagship model (xattn + WavLM-base 12x768 + ResNet18,
                concat head, mean pooling, d_model 128) with random weights
                from a seeded generator, saved as a reference-format .pt and
@@ -136,10 +139,13 @@ EVAL_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 # Per stage: 3 steps, then the stage's checks, then 6 more steps whose median
 # is the step time (the first steps of a stage pay cuDNN's algorithm choice).
 TRAIN_BATCH, TRAIN_STEPS, TIMED_STEPS = 16, 3, 6
-# Published H100 SXM peaks: HBM3 bytes/s; dense FLOP/s by operand type (float32
-# outside the tensor cores).
+# Published H100 SXM peaks: HBM3 bytes/s; dense FLOP/s by operand type.
+# float32 work: 3xTF32 on the tensor cores (three TF32 products of 495
+# TFLOP/s for each float32 one), the least time the card takes for it; the
+# CUDA cores' 67 TFLOP/s is reported beside it.
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
+F32_CUDA_CORE_FLOPS = 67e12
 
 
 def _plug(ms_wanted: float) -> None:
@@ -196,8 +202,42 @@ def bound(flops: float, nbytes: float, dtype) -> dict:
     """The least time the card could take: each input read once, each output
     written once, against the operations at the peak rate of their type."""
     by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
-    return {"bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+    out = {"bound_ms": max(by_bytes, by_ops),
+           "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+    if dtype == torch.float32:
+        out["bound_cuda_core_ms"] = max(by_bytes, flops / F32_CUDA_CORE_FLOPS * 1e3)
+    return out
+
+
+def _bound_text(limit: dict) -> str:
+    text = f"bound {limit['bound_ms']:.5f} ms ({limit['bound_by']})"
+    if "bound_cuda_core_ms" in limit:
+        text += f", CUDA-core bound {limit['bound_cuda_core_ms']:.5f} ms"
+    return text
+
+
+# The kernels each route launches, by profiler name: K1's core and
+# out-projection, and K3, per dtype (their tensor-core routes at these shapes).
+ROUTE_KERNELS = {
+    "K1": {torch.float32: ("attn_core_tf32", "out_proj_tf32"),
+           torch.bfloat16: ("attn_core_mma", "out_proj_mma")},
+    "K3": {torch.float32: ("conv_fe_tf32",), torch.bfloat16: ("conv_fe_wgmma",)},
+}
+
+
+def _check_route(label: str, dtype, names) -> bool:
+    """Fails unless the profiler saw the route's kernels and no CUDA-core
+    one.  A profile with no device event names nothing (as the serve and
+    train profiles, "not measured"): -> False, and the run goes on."""
+    if not names:
+        print(f"{label} {dtype}: the profiler saw no device time; kernels not named")
+        return False
+    want = ROUTE_KERNELS[label][dtype]
+    cuda_core = ("wavlm_attn_core", "wavlm_attn_out_proj", "conv_fe_kernel")
+    if not all(any(w in n for n in names) for w in want) or any(
+            c in n for c in cuda_core for n in names):
+        raise AssertionError(f"{label} {dtype}: expected {want} by profiler, saw {sorted(names)}")
+    return True
 
 
 def nbytes(*tensors) -> int:
@@ -248,17 +288,17 @@ def check_k1(dev, gen, b=8):
         limit = bound(4 * b * t * t * e + 2 * b * t * e * e, nbytes(*args, got), dtype)
         print(f"K1 {name}: B={b} T={t} E={e} H={h} max_abs_err={err:.3e} "
               f"(tol {K1_TOL[dtype]}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-              f"bound {limit['bound_ms']:.5f} ms ({limit['bound_by']})")
+              f"{_bound_text(limit)}")
         if not err <= K1_TOL[dtype]:
             raise AssertionError(f"K1 {name} disagrees with its plain version: {err}")
         report[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **limit,
                         "library_ms": None}
-        if dtype == torch.bfloat16:
-            split = profile_steps(
-                lambda: wavlm_attention_sublayer(*args, num_heads=h, seq_len=t), n=5)["kernels"]
-            print(f"K1 {name} B={b} per launch: "
-                  + ", ".join(f"{kernel} {ms:.4f} ms" for kernel, ms in split.items()))
-            report[name]["split_ms"] = split
+        split = profile_steps(
+            lambda: wavlm_attention_sublayer(*args, num_heads=h, seq_len=t), n=5)["kernels"]
+        _check_route("K1", dtype, split)
+        print(f"K1 {name} B={b} per launch: "
+              + ", ".join(f"{kernel} {ms:.4f} ms" for kernel, ms in split.items()))
+        report[name]["split_ms"] = split
     return report
 
 
@@ -271,6 +311,7 @@ def check_k3(dev, gen, b=8):
         fused_conv_layer,
         fused_conv_layer_plain,
     )
+    from multimodalemotionrecognition_torch.kernels.conv_fe import split_weight_tf32
 
     cfg = WavLMConfig()
     t_log = (48000 - cfg.conv_kernel[0]) // cfg.conv_stride[0] + 1
@@ -278,7 +319,10 @@ def check_k3(dev, gen, b=8):
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
         total = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+        if dtype == torch.float32:
+            total["ms_cached_split"] = 0.0  # the weight's TF32 split made once, as when serving
         flops = moved = 0
+        names = set()
         t_in = t_log
         for i in range(1, len(cfg.conv_dim)):
             k, s, cin, cout = cfg.conv_kernel[i], cfg.conv_stride[i], cfg.conv_dim[i - 1], cfg.conv_dim[i]
@@ -286,8 +330,10 @@ def check_k3(dev, gen, b=8):
             y = torch.randn(b, rows, s * cin, generator=gen).to(dev, dtype)
             w = (torch.randn(k * cin, cout, generator=gen) * (k * cin) ** -0.5).to(dev, dtype)
 
-            def kernel():
-                return fused_conv_layer(y, w, k, s, cin, gelu_output=True, t_in=t_in)
+            # Per call the float32 wrapper also splits the weight: counted in `ms`.
+            def kernel(w_split=None):
+                return fused_conv_layer(y, w, k, s, cin, gelu_output=True, t_in=t_in,
+                                        w_split=w_split)
 
             def plain():
                 return fused_conv_layer_plain(y, w, k, s, cin, gelu_output=True, t_in=t_in)
@@ -306,11 +352,19 @@ def check_k3(dev, gen, b=8):
                 return F.gelu(F.conv1d(x_ncw, w_oik, stride=s))
 
             ms, plain_ms, library_ms = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
+            cached = ""
+            if dtype == torch.float32:
+                w_split = split_weight_tf32(w)
+                cached_ms = cuda_ms(lambda: kernel(w_split))
+                total["ms_cached_split"] += cached_ms
+                cached = f" (weight split cached: {cached_ms:.4f} ms)"
             flops += 2 * b * t_out * k * cin * cout
             moved += (b * t_in * cin + k * cin * cout + b * t_out * cout) * y.element_size()
             print(f"K3 {name} L{i}: B={b} t_in={t_in} t_out={t_out} k={k} s={s} "
-                  f"max_abs_err={err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-                  f"conv1d+gelu {library_ms:.4f} ms")
+                  f"max_abs_err={err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms{cached} "
+                  f"plain {plain_ms:.4f} ms conv1d+gelu {library_ms:.4f} ms")
+            if i == 1:
+                names |= set(profile_steps(kernel, n=3)["kernels"])
             if not err <= tol:
                 raise AssertionError(f"K3 {name} L{i} disagrees with its plain version: {err}")
             total["max_abs_err"] = max(total["max_abs_err"], err)
@@ -319,9 +373,11 @@ def check_k3(dev, gen, b=8):
             total["library_ms"] += library_ms
             t_in = t_out
         total.update(bound(flops, moved, dtype))
-        print(f"K3 {name} B={b} L1-L6: kernel {total['ms']:.4f} ms plain {total['plain_ms']:.4f} ms "
-              f"conv1d+gelu {total['library_ms']:.4f} ms bound {total['bound_ms']:.5f} ms "
-              f"({total['bound_by']})")
+        named = _check_route("K3", dtype, names)
+        total["kernel_names"] = sorted(n for n in names if "conv_fe" in n) if named else None
+        print(f"K3 {name} B={b} L1-L6 ({', '.join(total['kernel_names'] or ['not named'])}): kernel "
+              f"{total['ms']:.4f} ms plain {total['plain_ms']:.4f} ms conv1d+gelu "
+              f"{total['library_ms']:.4f} ms {_bound_text(total)}")
         report[name] = total
     return report
 
@@ -597,8 +653,7 @@ def check_train_kernels(dev, gen):
             plain_ms = cuda_ms(lambda: wavlm_attention_sublayer_plain(*args, **kw))
             limit = bound(flops, nbytes(*args, got), dtype)
             print(f"K1 {name} B={b} {label}: max_abs_err={err:.3e} (tol {K1_TOL[dtype]}) "
-                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {limit['bound_ms']:.5f} ms "
-                  f"({limit['bound_by']})")
+                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms {_bound_text(limit)}")
             if not err <= K1_TOL[dtype]:
                 raise AssertionError(f"K1 {name} {label} disagrees with its plain version: {err}")
             k1_report[f"{name}_b16_{label.replace(' ', '_')}"] = {
@@ -638,8 +693,8 @@ def check_train_kernels(dev, gen):
             limit = bound(flops, nbytes(dout, *args[1:7], args[8], ctx, pre, *kernel()), dtype)
             print(f"K2 {name} B={b} {label}: ten gradients, worst error {worst:.3e} of the "
                   f"gradient's largest entry (tol {GRAD_TOL[dtype]}), two runs bit-identical; "
-                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {limit['bound_ms']:.5f} ms "
-                  f"({limit['bound_by']}; {flops / 1e9:.3f} GFLOP)")
+                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms {_bound_text(limit)} "
+                  f"({flops / 1e9:.3f} GFLOP)")
             key = f"{name}_{label.replace(' ', '_')}"
             k2_report[key] = {
                 "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **limit, "library_ms": None}
@@ -676,15 +731,28 @@ def _train_batches(n, seed, augment=True):
     return out
 
 
-def profile_steps(step, n: int = 2) -> dict:
+def profile_steps(step, n: int = 2, attempts: int = 3) -> dict:
     """Device time of `n` calls of step() by `torch.profiler` -> busy share
     of the wall time and the device time per step, by group and by kernel
-    (`kernels`: short name -> ms)."""
+    (`kernels`: short name -> ms).  A window in which the tracer recorded no
+    device event at all is taken again, up to `attempts` windows: the
+    tracer now and then returns an empty window on that card."""
+    for attempt in range(attempts):
+        if attempt:
+            time.sleep(0.5)
+        out = _profile_window(step, n)
+        if out["device_ms"] is not None:
+            break
+    return out
+
+
+def _profile_window(step, n: int) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    groups = {"K1": ("::wavlm_attn_", "attn_core_mma", "out_proj_mma"), "K2": ("::bwd_",),
-              "K3": ("conv_fe_kernel", "conv_fe_wgmma")}
+    groups = {"K1": ("::wavlm_attn_", "attn_core_mma", "out_proj_mma", "attn_core_tf32",
+                     "out_proj_tf32"),
+              "K2": ("::bwd_",), "K3": ("conv_fe_kernel", "conv_fe_wgmma", "conv_fe_tf32")}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1410,9 +1478,11 @@ def main() -> int:
                 print("  ptxas", line.split("info    :")[-1].strip())
     tensor_core = {f: n for f, n in spills.items()
                    if any(k in f for k in ("conv_fe_wgmma", "attn_core_mma", "out_proj_mma",
-                                           "bwd_proj_mma", "bwd_attn_mma"))}
+                                           "bwd_proj_mma", "bwd_attn_mma", "conv_fe_tf32",
+                                           "attn_core_tf32", "out_proj_tf32"))}
     print(f"build: spill bytes of the tensor-core kernels {tensor_core}")
-    if len(tensor_core) < 7 or any(tensor_core.values()):
+    # 7 bf16 instances, 5 float32 (3xTF32) ones.
+    if len(tensor_core) < 12 or any(tensor_core.values()):
         raise AssertionError(f"tensor-core kernels missing from the build log or spilling: {tensor_core}")
 
     gen = torch.Generator().manual_seed(SEED)
@@ -1466,16 +1536,21 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on its path")
         kernels.append({"name": name, "route": "cuda", "source": csrc + source,
                         "replaces": replaces, "launches": launches[name], **rep})
+    # The rows above are bfloat16; float32 beside them (K1, K3 on the tensor cores
+    # in 3xTF32; K2: its variants, float32 on CUDA cores).
     kernels[0]["float32"], kernels[1]["float32"] = k1["float32"], k3["float32"]
-    # bfloat16 on the tensor cores (the rows above; K2: its variants), float32 on CUDA cores.
-    kernels[0]["sources"] = [csrc + "wavlm_attn.cu", csrc + "wavlm_attn_tc.cuh", csrc + "hopper.cuh"]
+    kernels[0]["sources"] = [csrc + "wavlm_attn.cu", csrc + "wavlm_attn_tc.cuh",
+                             csrc + "wavlm_attn_tf32.cuh", csrc + "hopper.cuh"]
     kernels[4]["sources"] = [csrc + "wavlm_attn_bwd.cu", csrc + "wavlm_attn_bwd_tc.cuh",
                              csrc + "hopper.cuh"]
-    kernels[1]["sources"] = [csrc + "conv_fe_tc.cu", csrc + "hopper.cuh", csrc + "conv_fe.cu"]
-    # K1's device time per launch in bfloat16, at each batch it was held at.
-    kernels[0]["split_ms"] = {"b8": k1["bfloat16"]["split_ms"], **{
-        key: rep["wavlm_attention_sublayer"]["bfloat16"]["split_ms"]
-        for key, rep in bench_report["kernels_at_bench_shapes"].items()}}
+    kernels[1]["sources"] = [csrc + "conv_fe_tc.cu", csrc + "conv_fe_tf32.cu", csrc + "hopper.cuh",
+                             csrc + "conv_fe.cu"]
+    # K1's device time per launch by dtype, at each batch it was held at.
+    kernels[0]["split_ms"] = {
+        name: {"b8": k1[name]["split_ms"], **{
+            key: rep["wavlm_attention_sublayer"][name]["split_ms"]
+            for key, rep in bench_report["kernels_at_bench_shapes"].items()}}
+        for name in ("bfloat16", "float32")}
     kernels[2]["also_replaces"] = ops + "pallas_fused_block.py:506"
     # `launches` of K1 and K3 is the serving path's count; the training path's beside it.
     for entry in kernels[:2]:

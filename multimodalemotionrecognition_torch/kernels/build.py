@@ -49,10 +49,11 @@ _F = ctypes.c_float
 _DROPOUT = [_I, ctypes.c_uint, _F, ctypes.c_uint, _F]
 # C entry points: name -> argtypes (every function returns a cudaError_t).
 _SIGNATURES = {
-    # hidden, q, k, v, gate, bias, wo, bo, lns, lnb, ctx, proj, out,
+    # hidden, q, k, v, gate, bias, wo, bo, lns, lnb, ctx, proj, out, wo_t
+    # (W_o transposed, float32 tensor-core route only, else null),
     # B, Tp, seq_len, E, H, eps, then the dropout, then the stream
-    "emo_wavlm_attn_f32": [_P] * 13 + [_I] * 5 + [_F] + _DROPOUT + [_P],
-    "emo_wavlm_attn_bf16": [_P] * 13 + [_I] * 5 + [_F] + _DROPOUT + [_P],
+    "emo_wavlm_attn_f32": [_P] * 14 + [_I] * 5 + [_F] + _DROPOUT + [_P],
+    "emo_wavlm_attn_bf16": [_P] * 14 + [_I] * 5 + [_F] + _DROPOUT + [_P],
     # dout, q, k, v, gate, bias, wo, lns, ctx, proj; the ten gradients; seven
     # scratch buffers; B, Tp, seq_len, E, H, col_chunks, eps, dropout, stream
     "emo_wavlm_attn_bwd_f32": [_P] * 27 + [_I] * 6 + [_F] + _DROPOUT + [_P],
@@ -65,6 +66,10 @@ _SIGNATURES = {
     "emo_conv_fe_bf16": [_P] * 3 + [_I] * 9 + [_P],
     # y, w, out, B, rows, t_in, k, stride, cin, cout, gelu_out, plan, steps, stream
     "emo_conv_fe_wgmma_bf16": [_P] * 3 + [_I] * 8 + [ctypes.POINTER(_I), _I, _P],
+    # the same with w as [2, cout, k*cin], W^T split into TF32 hi and lo
+    "emo_conv_fe_wgmma_tf32x3": [_P] * 3 + [_I] * 8 + [ctypes.POINTER(_I), _I, _P],
+    # x, hi, lo, n, stream: the device's TF32 split, elementwise
+    "emo_split_tf32": [_P] * 3 + [ctypes.c_longlong, _P],
 }
 # pointer table, its length, int table, its length, eps, dh^-0.5, stream
 # (the tables are laid out in csrc/fusion.cuh and filled by kernels/xattn.py)

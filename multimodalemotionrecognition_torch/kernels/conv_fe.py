@@ -3,12 +3,19 @@ CUDA kernel.
 
 Replaces the TPU kernel `multimodalemotionrecognition_tpu/ops/
 pallas_conv_fe.py::_conv_kernel` (via `fused_conv_layer`), which
-`models/wavlm.py` calls for the conv layers L1..L6.  Two CUDA sources, each
-with its design note: `csrc/conv_fe_tc.cu`, an implicit GEMM fed by TMA and
-run by wgmma on the tensor cores, for bfloat16 without the input-side GELU;
-`csrc/conv_fe.cu`, float32 FMAs on CUDA cores, for float32 and for
-`gelu_input=True`.  Which one runs is decided by the arguments alone
-(`tensor_core_route`).
+`models/wavlm.py` calls for the conv layers L1..L6.  Three CUDA sources, each
+with its design note, all implicit GEMMs: `csrc/conv_fe_tc.cu` (TMA + wgmma
+on the tensor cores) for bfloat16 without the input-side GELU;
+`csrc/conv_fe_tf32.cu` (the same pipeline in TF32 with split products,
+3xTF32, at float32 accuracy) for float32 without it; `csrc/conv_fe.cu`
+(CUDA cores) for `gelu_input=True` and the shapes neither tensor-core
+kernel takes.  Which one runs is decided by the arguments alone
+(`tensor_core_route`, `tf32x3_route`).
+
+The float32 kernel reads the weight K-major and split into TF32 hi and lo
+parts, [2, cout, k*cin] (`split_weight_tf32`): pass it as `w_split` where
+the weight is constant (the model caches it for serving), or the wrapper
+makes it from `w_flat` on each call.
 
 `fused_conv_layer` keeps the JAX signature: `y` is the stride-reshaped
 input [B, rows, stride*cin] (a free view of the NWC [B, rows*stride, cin]
@@ -19,9 +26,9 @@ never read, so the caller pads nothing for the kernel's sake.  The result is
 are unspecified.
 
 For a CPU tensor the wrapper runs `fused_conv_layer_plain`, the same
-function in plain PyTorch.  For a CUDA tensor it launches one of the two
+function in plain PyTorch.  For a CUDA tensor it launches one of the three
 kernels or raises.  `fused_conv_layer.launches` counts kernel launches of
-either.
+any of them.
 
 The kernel has no backward (neither has the TPU kernel): the wrapper raises
 when a gradient is asked through it, so training runs it only on a frozen
@@ -39,11 +46,21 @@ from torch.nn import functional as F
 
 from multimodalemotionrecognition_torch.kernels.build import check, load_library
 
-__all__ = ["conv_tile_plan", "fused_conv_layer", "fused_conv_layer_plain", "tensor_core_route"]
+__all__ = [
+    "conv_tile_plan",
+    "fused_conv_layer",
+    "fused_conv_layer_plain",
+    "split_tf32",
+    "split_weight_tf32",
+    "tensor_core_route",
+    "tf32x3_route",
+]
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_BK = 64  # the tensor-core kernel's K step: kBK in csrc/conv_fe_tc.cu
+_BK = 64  # the bf16 tensor-core kernel's K step: kBK in csrc/conv_fe_tc.cu
 _MAX_STEPS = 128  # kMaxSteps there
+_TF32_BK = 32  # the float32 one's (32 float32 = 128 bytes): kBK in csrc/conv_fe_tf32.cu
+_TF32_MAX_STEPS = 256  # kMaxSteps there
 
 
 def conv_tile_plan(k: int, stride: int, cin: int, bk: int = _BK) -> List[Tuple[int, int, int]]:
@@ -61,9 +78,49 @@ def conv_tile_plan(k: int, stride: int, cin: int, bk: int = _BK) -> List[Tuple[i
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_array(k: int, stride: int, cin: int):
-    plan = conv_tile_plan(k, stride, cin)
+def _plan_array(k: int, stride: int, cin: int, bk: int = _BK):
+    plan = conv_tile_plan(k, stride, cin, bk)
     return (ctypes.c_int * (3 * len(plan)))(*(x for step in plan for x in step)), len(plan)
+
+
+def _tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 explicit mantissa bits), ties
+    away from zero, as `cvt.rna.tf32.f32`: + half of the 13 dropped bits on
+    the magnitude, then clear them (int32 view; Inf and NaN pass through)."""
+    bits = x.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 x -> (hi, lo) with hi = tf32(x), lo = tf32(x - hi): both exact
+    TF32 values, x - (hi + lo) within 2^-22 of x for normal values.  The
+    kernels' `split_tf32` (`csrc/hopper.cuh`) in plain PyTorch, bit for bit."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"split_tf32 takes float32, got {x.dtype}")
+    hi = _tf32_round(x)
+    return hi, _tf32_round(x - hi)
+
+
+def _tf32_round_finite_(x: torch.Tensor) -> torch.Tensor:
+    """`_tf32_round` in place, for finite values (two passes)."""
+    x.view(torch.int32).add_(0x1000).bitwise_and_(-0x2000)
+    return x
+
+
+def split_weight_tf32(w_flat: torch.Tensor) -> torch.Tensor:
+    """The float32 kernel's weight operand: tap-major [k*cin, cout] float32
+    -> [2, cout, k*cin], W^T (K contiguous, as TF32 wgmma reads both
+    operands) split into hi (index 0) and lo (index 1): `split_tf32(w_flat.t())`
+    bit for bit for finite weights, in six elementwise passes (made per
+    forward where the weights are not cached)."""
+    if w_flat.ndim != 2 or w_flat.dtype != torch.float32:
+        raise ValueError(f"w_flat must be a float32 [k*cin, cout] matrix, got "
+                         f"{w_flat.dtype} {tuple(w_flat.shape)}")
+    out = torch.empty((2, w_flat.shape[1], w_flat.shape[0]), device=w_flat.device)
+    _tf32_round_finite_(out[0].copy_(w_flat.t()))
+    _tf32_round_finite_(torch.sub(w_flat.t(), out[0], out=out[1]))
+    return out
 
 
 def tensor_core_route(y: torch.Tensor, w_flat: torch.Tensor, k: int, cin: int,
@@ -76,6 +133,18 @@ def tensor_core_route(y: torch.Tensor, w_flat: torch.Tensor, k: int, cin: int,
     error, never sent to the slower kernel."""
     return (y.dtype == torch.bfloat16 and not gelu_input and cin % _BK == 0
             and k * cin <= _MAX_STEPS * _BK and w_flat.shape[1] % 8 == 0)
+
+
+def tf32x3_route(y: torch.Tensor, w_flat: torch.Tensor, k: int, cin: int,
+                 gelu_input: bool) -> bool:
+    """True when `fused_conv_layer` runs the float32 tensor-core kernel
+    (3xTF32) on these arguments: float32, no input-side GELU, cin a multiple
+    of 32, k*cin <= 8192 and cout a multiple of 8.  Otherwise, in float32,
+    the CUDA-core kernel runs.  Decided by dtypes, flags and shapes only, as
+    `tensor_core_route`: an operand that is not 16-byte aligned is refused
+    by the kernel with an error."""
+    return (y.dtype == torch.float32 and not gelu_input and cin % _TF32_BK == 0
+            and k * cin <= _TF32_MAX_STEPS * _TF32_BK and w_flat.shape[1] % 8 == 0)
 
 
 def fused_conv_layer_plain(
@@ -109,12 +178,16 @@ def fused_conv_layer(
     gelu_input: bool = False,
     gelu_output: bool = False,
     t_in: Optional[int] = None,
+    w_split: Optional[torch.Tensor] = None,  # [2, cout, k*cin]: split_weight_tf32(w_flat)
 ) -> torch.Tensor:
     """-> conv output [B, rows, cout] in y's dtype (rows >= t_out unspecified).
 
-    On the card, bfloat16 without `gelu_input` runs on the tensor cores
-    (`csrc/conv_fe_tc.cu`; see `tensor_core_route` for the shapes it takes);
-    float32 and `gelu_input=True` run the CUDA-core kernel (`csrc/conv_fe.cu`)."""
+    On the card, without `gelu_input`, bfloat16 runs on the tensor cores
+    (`csrc/conv_fe_tc.cu`, see `tensor_core_route`) and float32 too, in
+    3xTF32 (`csrc/conv_fe_tf32.cu`, see `tf32x3_route`; it reads `w_split`,
+    made from `w_flat` here when not given); `gelu_input=True` and other
+    shapes run the CUDA-core kernel (`csrc/conv_fe.cu`).  `w_split` is read
+    on that route only."""
     if y.ndim != 3 or w_flat.ndim != 2:
         raise ValueError(
             f"y must be [B, rows, stride*cin] and w_flat [k*cin, cout], got "
@@ -156,6 +229,20 @@ def fused_conv_layer(
             plan, steps = _plan_array(k, stride, cin)
             err = lib.emo_conv_fe_wgmma_bf16(
                 y.data_ptr(), w_flat.data_ptr(), out.data_ptr(), *shape,
+                int(gelu_output), plan, steps, stream,
+            )
+        elif tf32x3_route(y, w_flat, k, cin, gelu_input):
+            if w_split is None:
+                w_split = split_weight_tf32(w_flat)
+            elif (w_split.shape != (2, cout, k * cin) or w_split.dtype != torch.float32
+                  or w_split.device != y.device or not w_split.is_contiguous()):
+                raise ValueError(
+                    f"w_split must be split_weight_tf32(w_flat): a contiguous float32 "
+                    f"[2, {cout}, {k * cin}] tensor on {y.device}, got {w_split.dtype} "
+                    f"{tuple(w_split.shape)} on {w_split.device}")
+            plan, steps = _plan_array(k, stride, cin, _TF32_BK)
+            err = lib.emo_conv_fe_wgmma_tf32x3(
+                y.data_ptr(), w_split.data_ptr(), out.data_ptr(), *shape,
                 int(gelu_output), plan, steps, stream,
             )
         else:

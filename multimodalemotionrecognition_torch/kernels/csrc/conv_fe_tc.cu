@@ -158,46 +158,12 @@ conv_fe_wgmma(__grid_constant__ const CUtensorMap map_y, __grid_constant__ const
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time through the runtime's entry
-// point query, so that the library does not link libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A row-major bf16 [outer, inner] matrix read in boxes of [box_outer,
 // box_inner] with 128-byte swizzle; zeros outside it.
 cudaError_t make_map(CUtensorMap* map, const void* base, uint64_t inner, uint64_t outer,
                      uint32_t box_inner, uint32_t box_outer) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return cudaErrorSymbolNotFound;
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {inner * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-                            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return make_tma_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sizeof(__nv_bfloat16), base, inner,
+                         outer, box_inner, box_outer);
 }
 
 template <bool kGeluOut>

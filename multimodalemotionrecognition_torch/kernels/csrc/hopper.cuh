@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the tensor-core kernels: mbarriers,
-// TMA tile loads, wgmma descriptors and issue, and the warp-level
-// ldmatrix / mma.sync of bf16 with float32 accumulation.  Every function is
-// inline: the header is included by more than one source.
+// TMA tile loads, wgmma descriptors and issue, the warp-level ldmatrix /
+// mma.sync of bf16 with float32 accumulation, and the TF32 split and
+// products of the float32 kernels (3xTF32).  Every function is inline: the
+// header is included by more than one source.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: libcuda is not linked)
@@ -67,6 +68,43 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// Host side: a tensor map over a row-major 2-D [outer, inner] matrix of
+// `type` (`elem_bytes` each), read in boxes of [box_outer, box_inner] with
+// 128-byte swizzle, zeros outside the matrix.  cuTensorMapEncodeTiled is
+// looked up at run time through the runtime's entry point query, so that
+// the library does not link libcuda.
+inline cudaError_t make_tma_map_2d(CUtensorMap* map, CUtensorMapDataType type, size_t elem_bytes,
+                                   const void* base, uint64_t inner, uint64_t outer,
+                                   uint32_t box_inner, uint32_t box_outer) {
+  using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static const EncodeTiled encode = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  if (!encode) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {inner * elem_bytes};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // ---- wgmma -----------------------------------------------------------------
 
 // Shared-memory matrix descriptor for a tile written by TMA with 128-byte
@@ -130,6 +168,101 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_tb(float (&d)[64], uint64_
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// d[64 x 128] = A[64 x 8] . B[8 x 128] (+ d when `accumulate`), TF32
+// operands from shared memory, float32 accumulators (64 a thread).  TF32
+// has no transposed mode: both operands are K-major (rows of K contiguous).
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], uint64_t desc_a,
+                                                     uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[64 x 64] = A[64 x 8] . B[8 x 64] (+ d when `accumulate`): as above, N = 64
+// (32 accumulators a thread).
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], uint64_t desc_a,
+                                                    uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[64 x 160] = A[64 x 8] . B[8 x 160] (+ d when `accumulate`): as above, N = 160
+// (80 accumulators a thread).
+__device__ __forceinline__ void wgmma_m64n160k8_tf32(float (&d)[80], uint64_t desc_a,
+                                                     uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "%80, %81, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads (wgmma, TMA) of the same bytes.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `count` threads.
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
 // ---- warp-level mma.sync ---------------------------------------------------
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row_addr) {
@@ -161,6 +294,68 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---- TF32 split products (3xTF32) -----------------------------------------
+//
+// x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), both rounded to
+// nearest, ties away from zero (cvt.rna), so both are exact TF32 values
+// (low 13 bits zero).  The tensor cores read a float32 operand's top 19
+// bits by truncation: hi is therefore rounded here, and lo is taken from
+// this same hi.  a.b ~ a_hi.b_hi + a_hi.b_lo + a_lo.b_hi, each product
+// exact in float32, is float32's product to about 2^-21 (the dropped
+// a_lo.b_lo is below 2^-22 of a.b).  The tensor cores add into their
+// float32 accumulator with truncation, so a long chain of products drifts
+// toward zero by about 2^-24 of the running sum a step: the kernels add a
+// short chain's accumulator into a float32 total with ordinary (rounded)
+// additions every few K steps.
+
+__device__ __forceinline__ float tf32_round(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = tf32_round(x);
+  lo = tf32_round(x - hi);
+}
+
+// Splits the 4 floats at `hi` in place (hi parts) and writes their lo parts
+// to `lo`: shared memory that TMA or cp.async filled, for wgmma to read both.
+__device__ __forceinline__ void split_tf32_16b(uint8_t* hi, uint8_t* lo) {
+  const float4 x = *reinterpret_cast<const float4*>(hi);
+  float4 h, l;
+  split_tf32(x.x, h.x, l.x);
+  split_tf32(x.y, h.y, l.y);
+  split_tf32(x.z, h.z, l.z);
+  split_tf32(x.w, h.w, l.w);
+  *reinterpret_cast<float4*>(hi) = h;
+  *reinterpret_cast<float4*>(lo) = l;
+}
+
+// c[16 x 8] += a[16 x 8] . b[8 x 8]: TF32 operands, float32 accumulators.
+// Lane l holds, with g = l / 4 and q = l % 4: a = {(g, q), (g+8, q), (g,
+// q+4), (g+8, q+4)}, b = {(k q, n g), (k q+4, n g)}, c = {(g, 2q), (g,
+// 2q+1), (g+8, 2q), (g+8, 2q+1)}.
+__device__ __forceinline__ void mma_tf32_1688(float (&c)[4], const float (&a)[4], float b0,
+                                              float b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])), "r"(__float_as_uint(a[2])),
+        "r"(__float_as_uint(a[3])), "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
+// c += a.b in three TF32 products from the split operands: the two small
+// terms first, then hi.hi.
+__device__ __forceinline__ void mma_3xtf32_1688(float (&c)[4], const float (&a_hi)[4],
+                                                const float (&a_lo)[4], float b0_hi,
+                                                float b1_hi, float b0_lo, float b1_lo) {
+  mma_tf32_1688(c, a_lo, b0_hi, b1_hi);
+  mma_tf32_1688(c, a_hi, b0_lo, b1_lo);
+  mma_tf32_1688(c, a_hi, b0_hi, b1_hi);
 }
 
 // 16-byte asynchronous copy to shared memory; `valid` false writes zeros

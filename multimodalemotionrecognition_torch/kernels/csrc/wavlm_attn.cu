@@ -18,12 +18,14 @@
 // device memory and reads them back, in four launches plus the head
 // transposes.
 //
-// Design: three launches and no score tensor in device memory.  In
-// bfloat16 (dh = 64, seq_len <= 160) launches (a) and (b) run on the tensor
-// cores (`wavlm_attn_tc.cuh`, mma.sync of bf16 into float32: an exact
-// softmax over the whole score row held in registers, and a 64 x 64-tiled
-// out-projection); in float32, and in bfloat16 beyond those shapes, all
-// three run on CUDA cores:
+// Design: three launches and no score tensor in device memory.  At dh = 64
+// and seq_len <= 160 launches (a) and (b) run on the tensor cores, with an
+// exact softmax over the whole score row held in registers and a 64 x
+// 64-tiled out-projection: in bfloat16 `wavlm_attn_tc.cuh` (mma.sync of bf16
+// into float32), in float32 `wavlm_attn_tf32.cuh` (TF32 with split
+// products, 3xTF32, at float32 accuracy: the scores and the out-projection
+// on wgmma, P.V on mma.sync).  Beyond those shapes all three run on CUDA
+// cores:
 //  (a) wavlm_attn_core: one block per (query tile of 32 rows, head, batch).
 //      K_h and V_h (seq_len x 64, float32) sit in shared memory; each warp
 //      owns one query row at a time, computes its scores into a per-warp
@@ -39,8 +41,8 @@
 //      write in the compute dtype (both dtypes).
 // The CUDA-core query row of (a), the tile product of (b) and the LayerNorm
 // of (c) live in `wavlm_sublayer.cuh`, shared with the batch-tiled kernel
-// (`wavlm_attn_tiled.cu`), which stays on CUDA cores: K6 gives K1's bits in
-// float32 and agrees with K1 within rounding in bfloat16.
+// (`wavlm_attn_tiled.cu`), which stays on CUDA cores: K6 agrees with K1
+// within rounding (another sum order on the tensor-core routes).
 //
 // Rows >= seq_len are neither computed nor written.
 //
@@ -56,6 +58,7 @@
 #include <type_traits>
 
 #include "wavlm_attn_tc.cuh"
+#include "wavlm_attn_tf32.cuh"
 #include "wavlm_sublayer.cuh"
 
 namespace {
@@ -165,7 +168,7 @@ template <typename T>
 int launch(const void* hidden, const void* q, const void* k, const void* v,
            const void* gate, const void* bias, const void* wo, const void* bo,
            const void* lns, const void* lnb, void* ctx, void* proj, void* out,
-           int B, int Tp, int seq_len, int E, int H, float eps, int seed,
+           const void* wo_t, int B, int Tp, int seq_len, int E, int H, float eps, int seed,
            unsigned attn_thr, float attn_inv, unsigned hid_thr, float hid_inv,
            void* stream_ptr) {
   if (B < 1 || H < 1 || E % H != 0 || seq_len < 1 || seq_len > Tp ||
@@ -175,11 +178,22 @@ int launch(const void* hidden, const void* q, const void* k, const void* v,
   const int dh = E / H;
 
   const int M = B * Tp;
-  // bfloat16 at dh = 64 and seq_len <= 160: (a) and (b) on the tensor cores.
+  // dh = 64 and seq_len <= 160: (a) and (b) on the tensor cores, bf16 or 3xTF32.
   bool tensor_cores = false;
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
     tensor_cores = dh == emo::tc::kHeadDim && seq_len <= emo::tc::kMaxKeys;
-  if (tensor_cores) {
+  else
+    tensor_cores = dh == emo::tf32::kHeadDim && seq_len <= emo::tf32::kMaxKeys;
+  if (tensor_cores && std::is_same<T, float>::value) {
+    const cudaError_t err = emo::tf32::launch_core_and_proj(
+        static_cast<const float*>(hidden), static_cast<const float*>(q),
+        static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(gate), static_cast<const float*>(bias),
+        static_cast<const float*>(wo_t), static_cast<const float*>(bo), static_cast<float*>(ctx),
+        static_cast<float*>(proj), B, Tp, seq_len, E, H, (unsigned)seed, attn_thr, attn_inv,
+        hid_thr, hid_inv, stream);
+    if (err != cudaSuccess) return err;
+  } else if (tensor_cores) {
     const cudaError_t err = emo::tc::launch_core_and_proj(
         static_cast<const __nv_bfloat16*>(hidden), static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
@@ -220,17 +234,20 @@ int launch(const void* hidden, const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// wo_t: W_o transposed, [E_out, E_in], read by the float32 tensor-core
+// route only (null elsewhere).
 #define EMO_WAVLM_ATTN_ENTRY(NAME, T)                                           \
   extern "C" int NAME(const void* hidden, const void* q, const void* k,        \
                       const void* v, const void* gate, const void* bias,       \
                       const void* wo, const void* bo, const void* lns,         \
                       const void* lnb, void* ctx, void* proj, void* out,       \
-                      int B, int Tp, int seq_len, int E, int H, float eps,     \
-                      int seed, unsigned attn_thr, float attn_inv,             \
-                      unsigned hid_thr, float hid_inv, void* stream) {         \
+                      const void* wo_t, int B, int Tp, int seq_len, int E,     \
+                      int H, float eps, int seed, unsigned attn_thr,           \
+                      float attn_inv, unsigned hid_thr, float hid_inv,         \
+                      void* stream) {                                          \
     return launch<T>(hidden, q, k, v, gate, bias, wo, bo, lns, lnb, ctx, proj, \
-                     out, B, Tp, seq_len, E, H, eps, seed, attn_thr, attn_inv, \
-                     hid_thr, hid_inv, stream);                                \
+                     out, wo_t, B, Tp, seq_len, E, H, eps, seed, attn_thr,     \
+                     attn_inv, hid_thr, hid_inv, stream);                      \
   }
 
 EMO_WAVLM_ATTN_ENTRY(emo_wavlm_attn_f32, float)

@@ -7,14 +7,17 @@ pallas_wavlm_attn.py::_sublayer_kernel`, K2 its backward
 which `models/wavlm.py` calls once per encoder layer).  The CUDA sources and
 their design notes are `csrc/wavlm_attn.cu` and `csrc/wavlm_attn_bwd.cu`.
 K1 is three launches: the attention core, the out-projection and the
-LayerNorm.  In bfloat16 with a head width of 64 and `seq_len` <= 160 (the
-WavLM models: 64 and 149) the first two run on the tensor cores
-(`csrc/wavlm_attn_tc.cuh`, mma.sync of bf16 into float32); in float32, and
-in bfloat16 at other shapes, on CUDA cores.  K2 follows the same rule
-(`tensor_core_route`): on that route its out-projection products and its
-attention backward run on the tensor cores (`csrc/wavlm_attn_bwd_tc.cuh`,
-six launches in all), elsewhere on CUDA cores (eight launches).  The choice
-follows from the arguments alone.
+LayerNorm.  With a head width of 64 and `seq_len` <= 160 (the WavLM models:
+64 and 149) the first two run on the tensor cores: in bfloat16
+`csrc/wavlm_attn_tc.cuh` (mma.sync of bf16 into float32,
+`tensor_core_route`), in float32 `csrc/wavlm_attn_tf32.cuh` (TF32 with
+split products, 3xTF32, at float32 accuracy: the scores and the
+out-projection on wgmma, P.V on mma.sync; `tf32x3_route`; the wrapper passes
+W_o transposed, a per-call copy); at other shapes on CUDA cores.  K2 follows `tensor_core_route`: on that route
+its out-projection products and its attention backward run on the tensor
+cores (`csrc/wavlm_attn_bwd_tc.cuh`, six launches in all), elsewhere, float32
+included, on CUDA cores (eight launches).  The choice follows from the
+arguments alone.
 
 `wavlm_attention_sublayer` keeps the JAX function's public layout: q/k/v in
 their natural [B, Tp, E] layout with q pre-scaled by dh^-0.5, the per-query
@@ -54,7 +57,9 @@ __all__ = [
     "backward_attention_smem_bytes",
     "drop_threshold",
     "hash_keep_plain",
+    "forward_core_smem_bytes",
     "tensor_core_route",
+    "tf32x3_route",
     "wavlm_attention_sublayer",
     "wavlm_attention_sublayer_backward",
     "wavlm_attention_sublayer_backward_plain",
@@ -70,6 +75,9 @@ _BATCH_STRIDE, _HEAD_STRIDE, _HIDDEN_OFFSET = 0x632BE59B, 0x9E3779B9, 0x7FEB352D
 # The tensor-core route: kHeadDim and kMaxKeys of csrc/wavlm_attn_tc.cuh and
 # csrc/wavlm_attn_bwd_tc.cuh; 72 bf16 per row of a Q/K/V/dctx tile there.
 _TC_HEAD_DIM, _TC_MAX_KEYS, _TC_ROW_STRIDE = 64, 160, 72
+# K1's float32 tensor-core core (csrc/wavlm_attn_tf32.cuh): the same head
+# width and key count, 64 query rows; Q and K as hi and lo in 128-byte rows.
+_TF32_CORE_ROWS = 64
 
 
 def tensor_core_route(hidden: torch.Tensor, num_heads: int, seq_len: int) -> bool:
@@ -80,6 +88,27 @@ def tensor_core_route(hidden: torch.Tensor, num_heads: int, seq_len: int) -> boo
     with an error, never sent to the CUDA-core kernels."""
     return (hidden.dtype == torch.bfloat16 and hidden.shape[-1] == _TC_HEAD_DIM * num_heads
             and seq_len <= _TC_MAX_KEYS)
+
+
+def tf32x3_route(hidden: torch.Tensor, num_heads: int, seq_len: int) -> bool:
+    """True when K1 runs its float32 tensor-core kernels (3xTF32) on these
+    arguments: float32, a head width of 64 and `seq_len` <= 160.  Otherwise,
+    in float32, its CUDA-core kernels run.  K2 keeps its CUDA-core kernels
+    in float32 (`tensor_core_route`)."""
+    return (hidden.dtype == torch.float32 and hidden.shape[-1] == _TC_HEAD_DIM * num_heads
+            and seq_len <= _TC_MAX_KEYS)
+
+
+def forward_core_smem_bytes(seq_len: int) -> int:
+    """Shared memory of one block of K1's float32 tensor-core core
+    (`core_smem_bytes` in csrc/wavlm_attn_tf32.cuh): Q (64 query rows) and
+    K_h (padded to 64 keys up to seq_len 64 and to 160 above) as TF32 hi
+    and lo parts in rows of 64 float32 (V takes K's space later), and 1 KB
+    of alignment."""
+    if not 1 <= seq_len <= _TC_MAX_KEYS:
+        raise ValueError(f"seq_len={seq_len} outside the tensor-core route (1 to {_TC_MAX_KEYS})")
+    keys = 64 if seq_len <= 64 else _TC_MAX_KEYS
+    return 2 * 4 * _TC_HEAD_DIM * (_TF32_CORE_ROWS + keys) + 1024
 
 
 def backward_attention_smem_bytes(seq_len: int) -> int:
@@ -349,7 +378,10 @@ def wavlm_attention_sublayer_forward(
     dh = e // num_heads
     if e > 1024:
         raise ValueError(f"E={e} > 1024 is not supported by the K1 kernel")
-    smem = 4 * (seq_len * (2 * dh + 1) + 8 * (dh + seq_len))
+    if tf32x3_route(hidden, num_heads, seq_len):
+        smem = forward_core_smem_bytes(seq_len)
+    else:
+        smem = 4 * (seq_len * (2 * dh + 1) + 8 * (dh + seq_len))
     if smem > _MAX_SMEM:
         raise ValueError(f"seq_len={seq_len} needs {smem} B of shared memory")
 
@@ -358,10 +390,14 @@ def wavlm_attention_sublayer_forward(
     ctx = torch.empty_like(hidden)  # attention context, compute dtype
     pre = torch.empty_like(hidden, dtype=torch.float32)  # pre-LayerNorm rows
     out = torch.empty_like(hidden)
+    # The float32 tensor-core out-projection reads W_o transposed (TF32
+    # wgmma takes both operands K-major): a per-call copy, ~2.4 MB at E=768.
+    wo_t = wo.t().contiguous() if tf32x3_route(hidden, num_heads, seq_len) else None
     with torch.cuda.device(hidden.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             *(t.data_ptr() for t in (*args, ctx, pre, out)),
+            None if wo_t is None else wo_t.data_ptr(),
             b, tp, seq_len, e, num_heads, eps,
             *_dropout_args(attn_dropout, hidden_dropout, dropout_seed), stream,
         )

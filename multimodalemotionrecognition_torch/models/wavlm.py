@@ -16,7 +16,9 @@ are on CUDA):
     operands are made once by `cache_kernel_operands` (from an int8
     out-projection too);
   * K2, its backward, through the same wrapper's `autograd.Function`;
-  * K3 `kernels/conv_fe.py` runs conv layers L1..L6 with their GELU.
+  * K3 `kernels/conv_fe.py` runs conv layers L1..L6 with their GELU; its
+    weights (with, in float32 on the card, their TF32 split) are made once
+    by `cache_kernel_operands` when serving, else per forward.
 
 Training (`forward(..., train=True, rng=RngStreams)`): the feature
 projection, encoder, activation and hidden dropouts, span masking with the
@@ -45,7 +47,11 @@ from torch import nn
 from torch.nn import functional as F
 
 from multimodalemotionrecognition_torch.config import WavLMConfig
-from multimodalemotionrecognition_torch.kernels.conv_fe import fused_conv_layer
+from multimodalemotionrecognition_torch.kernels.conv_fe import (
+    fused_conv_layer,
+    split_weight_tf32,
+    tf32x3_route,
+)
 from multimodalemotionrecognition_torch.kernels.wavlm_attn import (
     wavlm_attention_sublayer,
 )
@@ -335,6 +341,35 @@ class WavLMModel(nn.Module):
         self.masked_spec_embed = nn.Parameter(torch.empty(config.hidden_size))
         self.encoder = _Encoder(config)
         self.layers_run: list = []  # indices of the layers the last forward ran (LayerDrop)
+        self._k3_operands = None
+
+    def _make_k3_operands(self):
+        """K3's weights for L1..L6, per layer (w_flat, w_split): the tap-major
+        [k*cin, cout] matrix and, on the card where the float32 kernel takes
+        it (`tf32x3_route`), its K-major TF32 split; else None."""
+        out = []
+        for layer, k in zip(self.feature_extractor.conv_layers[1:], self.config.conv_kernel[1:]):
+            w = layer.conv.weight  # [cout, cin, k] -> tap-major [k*cin, cout]
+            cin = w.shape[1]
+            w_flat = w.permute(2, 1, 0).reshape(k * cin, w.shape[0])
+            # The activations share the weight's dtype, which is all the route reads of them.
+            split = (split_weight_tf32(w_flat)
+                     if w.is_cuda and tf32x3_route(w_flat, w_flat, k, cin, False) else None)
+            out.append((w_flat, split))
+        return out
+
+    def _k3_operands_for(self, train: bool):
+        """The cached operands when they cannot be stale (as
+        `WavLMEncoderLayer._k1_operands_for`), else made for this forward."""
+        weights = [layer.conv.weight for layer in self.feature_extractor.conv_layers[1:]]
+        live = train or (torch.is_grad_enabled() and any(w.requires_grad for w in weights))
+        if live or self._k3_operands is None:
+            return self._make_k3_operands()
+        return self._k3_operands
+
+    def _apply(self, fn, recurse=True):
+        self._k3_operands = None  # made for one device and dtype
+        return super()._apply(fn, recurse)
 
     def _conv_features(self, wav: torch.Tensor, train: bool = False) -> torch.Tensor:
         """[B, T_samples] -> conv features [B, T, C] (NWC).  In a train-mode
@@ -360,20 +395,22 @@ class WavLMModel(nn.Module):
 
         x = x.transpose(1, 2)  # NWC [B, T, C]
         b, t_log = x.shape[0], x.shape[1]
-        for layer, k, s in zip(layers[1:], cfg.conv_kernel[1:], cfg.conv_stride[1:]):
+        operands = self._k3_operands_for(train)
+        for (w_flat, w_split), k, s in zip(operands, cfg.conv_kernel[1:], cfg.conv_stride[1:]):
             cin = x.shape[2]
             x = _rows_multiple_of(x, s)
-            w = layer.conv.weight  # [cout, cin, k] -> tap-major [k*cin, cout]
-            w_flat = w.permute(2, 1, 0).reshape(k * cin, w.shape[0])
             x = fused_conv_layer(
                 x.view(b, x.shape[1] // s, s * cin), w_flat, k=k, stride=s,
-                cin=cin, gelu_output=True, t_in=t_log,
+                cin=cin, gelu_output=True, t_in=t_log, w_split=w_split,
             )
             t_log = (t_log - k) // s + 1
         return x[:, :t_log]
 
     def cache_kernel_operands(self) -> None:
-        """See `WavLMEncoderLayer.cache_kernel_operands`."""
+        """K3's weights, then each layer's K1 operands (see
+        `WavLMEncoderLayer.cache_kernel_operands`), made once for serving."""
+        with torch.no_grad():
+            self._k3_operands = self._make_k3_operands()
         for layer in self.encoder.layers:
             layer.cache_kernel_operands()
 

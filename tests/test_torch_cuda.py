@@ -27,9 +27,18 @@ from multimodalemotionrecognition_torch.kernels import (
     wavlm_attention_sublayer_tiled_plain,
     xattn_params_from_state_dict,
 )
-from multimodalemotionrecognition_torch.kernels.conv_fe import tensor_core_route
+from multimodalemotionrecognition_torch.kernels.build import load_library
+from multimodalemotionrecognition_torch.kernels.conv_fe import (
+    split_tf32,
+    split_weight_tf32,
+    tensor_core_route,
+    tf32x3_route,
+)
 from multimodalemotionrecognition_torch.kernels.wavlm_attn import (
     tensor_core_route as attention_tensor_core_route,
+)
+from multimodalemotionrecognition_torch.kernels.wavlm_attn import (
+    tf32x3_route as attention_tf32x3_route,
 )
 from multimodalemotionrecognition_torch.models.factory import init_parameters
 from multimodalemotionrecognition_torch.models.fusion import FusionModel
@@ -47,19 +56,24 @@ def cuda():
     return torch.device("cuda")
 
 
-def _kernel_names(fn):
+def _kernel_names(fn, attempts=3):
     """Names of the CUDA kernels fn() launches (torch.profiler).  Warmed up,
     and three calls in the window: the tracer can miss the first launches
-    after it starts."""
+    after it starts.  A window with no device event at all is taken again
+    (up to `attempts`): the tracer now and then returns an empty one."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key for e in prof.key_averages() if e.device_type.name == "CUDA"}
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages() if e.device_type.name == "CUDA"}
+        if names:
+            break
+    return names
 
 
 def _sublayer_inputs(b, h, tp, dtype, device, seed=0, e=None):
@@ -99,7 +113,9 @@ def test_attention_kernel_matches_plain(cuda, dtype, atol, b, tp, seq):
 @pytest.mark.parametrize("b,tp,seq", [(8, 160, 149), (16, 149, 149), (4, 37, 37)])
 def test_tiled_attention_kernel_matches_plain_and_k1_for_every_tile(cuda, dtype, atol, b, tp, seq):
     """K6: within tolerance of its plain version on every row, the same
-    bits for every tile size, and K1's bits below seq_len (shared device code)."""
+    bits for every tile size, and K1's values below seq_len within the same
+    tolerance (K1 runs both dtypes on the tensor cores at these shapes, K6
+    on CUDA cores: another sum order)."""
     h = 12
     args = _sublayer_inputs(b, h, tp, dtype, cuda)
     before = wavlm_attention_sublayer_tiled.launches
@@ -109,10 +125,7 @@ def test_tiled_attention_kernel_matches_plain_and_k1_for_every_tile(cuda, dtype,
     torch.cuda.synchronize()
     assert torch.isfinite(ref).all()
     assert (ref.float() - want.float()).abs().max().item() <= atol
-    if dtype == torch.float32:  # K1's CUDA-core device code: the same bits
-        assert torch.equal(ref[:, :seq], k1[:, :seq])
-    else:  # K1 runs bf16 on the tensor cores, K6 on CUDA cores: another sum order
-        assert (ref[:, :seq].float() - k1[:, :seq].float()).abs().max().item() <= atol
+    assert (ref[:, :seq].float() - k1[:, :seq].float()).abs().max().item() <= atol
     tiles = [g for g in (2, 4, 8) if b % g == 0]
     for g in tiles:
         assert torch.equal(wavlm_attention_sublayer_tiled(g, *args, h, seq), ref), g
@@ -231,13 +244,103 @@ def test_attention_tensor_core_path_matches_plain(cuda, h, tp, seq, b, dropout):
 
 
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, {"attn_core_mma", "out_proj_mma"}),
-                                         (torch.float32, {"wavlm_attn_core", "wavlm_attn_out_proj"})])
+                                         (torch.float32, {"attn_core_tf32", "out_proj_tf32"})])
 def test_attention_kernel_route_follows_the_dtype(cuda, dtype, route):
     args = _sublayer_inputs(2, 12, 149, dtype, cuda)
     names = _kernel_names(lambda: wavlm_attention_sublayer(*args, num_heads=12, seq_len=149))
     for name in route:
         assert any(name in n for n in names), (name, names)
     assert any("wavlm_attn_ln" in n for n in names), names
+
+
+@pytest.mark.parametrize("dropout", [False, True], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("h,tp,seq", [(12, 149, 149), (12, 149, 131), (12, 160, 149), (12, 160, 57),
+                                      (4, 96, 77)])
+def test_attention_tf32x3_path_matches_plain(cuda, h, tp, seq, b, dropout):
+    """float32 K1 on the tensor cores (3xTF32; dh = 64, seq_len <= 160)
+    against its plain version at float32's tolerance, rows < seq_len, with
+    and without both dropouts (a flipped mask bit moves a row far more)."""
+    args = _sublayer_inputs(b, h, tp, torch.float32, cuda, seed=11)
+    assert attention_tf32x3_route(args[0], h, seq)
+    kw = dict(num_heads=h, seq_len=seq)
+    if dropout:
+        kw.update(attn_dropout=0.1, hidden_dropout=0.1, dropout_seed=424242)
+    got = wavlm_attention_sublayer(*args, **kw)
+    want = wavlm_attention_sublayer_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got[:, :seq]).all()
+    err = (got[:, :seq] - want[:, :seq]).abs().max().item()
+    assert err <= 1e-4, err
+
+
+@pytest.mark.parametrize("dropout", [False, True], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("b,tp,seq", [(2, 160, 149), (3, 64, 37), (2, 149, 131)])
+def test_attention_tf32x3_never_reads_rows_past_seq_len(cuda, b, tp, seq, dropout):
+    """NaN in hidden, q, k and v at rows >= seq_len: the float32 tensor-core
+    K1 gives the bits it gives with zeros there on every row < seq_len, and
+    so do its context and pre-LayerNorm rows (what K2 reads)."""
+    h = 12
+    args = _sublayer_inputs(b, h, tp, torch.float32, cuda, seed=27)
+    kw = dict(num_heads=h, seq_len=seq)
+    if dropout:
+        kw.update(attn_dropout=0.1, hidden_dropout=0.1, dropout_seed=97)
+    results = []
+    for fill in (0.0, float("nan")):
+        padded = [t.clone() for t in args]
+        for t in padded[:4]:
+            t[:, seq:] = fill
+        results.append(wavlm_attention_sublayer_forward(*padded, **kw))
+    torch.cuda.synchronize()
+    for name, x, y in zip(("out", "ctx", "pre"), *results):
+        assert torch.isfinite(y[:, :seq]).all(), name
+        assert torch.equal(x[:, :seq], y[:, :seq]), f"{name} picked up a row past seq_len"
+
+
+@pytest.mark.parametrize(
+    "h,e,tp,seq",
+    [(12, 768, 249, 249), (12, 768, 249, 231), (12, 768, 161, 161), (4, 768, 37, 37),
+     (8, 256, 64, 64)],
+    ids=["seq249", "seq231", "seq161", "dh192", "dh32"],
+)
+def test_attention_f32_off_the_tf32x3_route_runs_the_cuda_core_kernels(cuda, h, e, tp, seq):
+    """float32 K1 past 160 keys or at a head width other than 64 keeps the
+    CUDA-core core and out-projection (by name), within 1e-4 of its plain
+    version on rows < seq_len."""
+    args = _sublayer_inputs(2, h, tp, torch.float32, cuda, seed=29, e=e)
+    assert not attention_tf32x3_route(args[0], h, seq)
+    kw = dict(num_heads=h, seq_len=seq, attn_dropout=0.1, hidden_dropout=0.1, dropout_seed=31)
+    got = wavlm_attention_sublayer(*args, **kw)
+    want = wavlm_attention_sublayer_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = (got[:, :seq] - want[:, :seq]).abs().max().item()
+    assert err <= 1e-4, err
+    names = _kernel_names(lambda: wavlm_attention_sublayer(*args, **kw))
+    for name in ("wavlm_attn_core", "wavlm_attn_out_proj", "wavlm_attn_ln"):
+        assert any(name in n for n in names), (name, names)
+    assert not any("tf32" in n or "mma" in n for n in names), names
+
+
+def test_split_tf32_on_the_device_is_bit_equal_to_the_plain_helper(cuda):
+    """The kernels' split (`split_tf32` in csrc/hopper.cuh, cvt.rna) on
+    normal, tie, subnormal and signed values, against `conv_fe.split_tf32`."""
+    g = torch.Generator().manual_seed(17)
+    wide = torch.randn(8192, generator=g) * torch.exp2(torch.randint(-120, 120, (8192,), generator=g))
+    grid = split_tf32(torch.randn(2048, generator=g))[0]
+    step = torch.exp2(torch.floor(torch.log2(grid.abs())) - 11)  # half a TF32 step
+    ties = grid + torch.sign(grid) * step
+    bits = torch.randint(1, 0x800000, (2048,), generator=g, dtype=torch.int32)
+    subnormal = bits.view(torch.float32) * torch.where(torch.rand(2048, generator=g) < 0.5, -1.0, 1.0)
+    x = torch.cat([wide, ties, subnormal, torch.tensor([0.0, -0.0, 1.0, 2.0**-126])]).to(cuda)
+    hi, lo = torch.empty_like(x), torch.empty_like(x)
+    lib = load_library()
+    err = lib.emo_split_tf32(x.data_ptr(), hi.data_ptr(), lo.data_ptr(), x.numel(),
+                             torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    want_hi, want_lo = split_tf32(x)
+    torch.cuda.synchronize()
+    assert torch.equal(hi.view(torch.int32), want_hi.view(torch.int32))
+    assert torch.equal(lo.view(torch.int32), want_lo.view(torch.int32))
 
 
 @pytest.mark.parametrize("dropout", [False, True], ids=["no_dropout", "dropout"])
@@ -263,8 +366,8 @@ def test_attention_bf16_past_160_keys_runs_the_cuda_core_kernels(cuda, b, tp, se
 
 
 def _misaligned(x):
-    """x's values in a contiguous tensor whose data starts 2 bytes past a
-    16-byte boundary."""
+    """x's values in a contiguous tensor whose data starts one element (2
+    bytes in bf16, 4 in float32) past a 16-byte boundary."""
     flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
     out = flat[1:].view(x.shape)
     out.copy_(x)
@@ -470,6 +573,98 @@ def test_conv_kernel_route_follows_the_arguments(cuda, gelu_in, kernel):
     names = _kernel_names(lambda: fused_conv_layer(y, w, 3, 2, cin, gelu_input=gelu_in))
     assert any(kernel in n for n in names), names
     assert len([n for n in names if "conv_fe" in n]) == 1, names
+
+
+@pytest.mark.parametrize("gelu_out", [True, False])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("layer", range(1, 7), ids=lambda i: f"L{i}")
+def test_conv_kernel_f32_matches_plain_on_every_layer(cuda, layer, b, gelu_out):
+    """float32 K3 on the tensor cores (3xTF32) on each layer shape, against
+    its plain version at float32's tolerance, with the split weight made by
+    the wrapper and passed in (the same bits).  NaN past t_in in the buffer
+    reaches no row < t_out."""
+    k, t_in = CONV_LAYERS[layer - 1]
+    cin = cout = 512
+    s = 2
+    rows = -(-t_in // s)
+    g = torch.Generator().manual_seed(layer)
+    y = torch.randn(b, rows, s * cin, generator=g).to(cuda)
+    y.view(b, rows * s, cin)[:, t_in:] = float("nan")
+    w = (torch.randn(k * cin, cout, generator=g) * (k * cin) ** -0.5).to(cuda)
+    assert tf32x3_route(y, w, k, cin, False)
+    flags = dict(gelu_output=gelu_out, t_in=t_in)
+    before = fused_conv_layer.launches
+    got = fused_conv_layer(y, w, k, s, cin, **flags)
+    again = fused_conv_layer(y, w, k, s, cin, **flags, w_split=split_weight_tf32(w))
+    want = fused_conv_layer_plain(y, w, k, s, cin, **flags)
+    torch.cuda.synchronize()
+    assert fused_conv_layer.launches == before + 2
+    t_out = (t_in - k) // s + 1
+    assert torch.isfinite(got[:, :t_out]).all()
+    assert torch.equal(got[:, :t_out], again[:, :t_out])
+    err = (got[:, :t_out] - want[:, :t_out]).abs().max().item()
+    assert err <= 1e-4, err
+
+
+@pytest.mark.parametrize(
+    "cin,cout,k,s,t_in",
+    [(64, 200, 3, 2, 301), (128, 72, 2, 2, 97), (64, 136, 5, 2, 203), (64, 64, 4, 3, 95),
+     (32, 64, 3, 2, 101)],
+    ids=["cout200", "cout72", "k5_shift2", "stride3", "cin32"],
+)
+def test_conv_tf32x3_kernel_on_other_shapes(cuda, cin, cout, k, s, t_in):
+    """Shapes the float32 tensor-core route takes beyond WavLM's (a partial
+    last column tile, taps two input rows ahead, stride 3, cin 32), against
+    the plain version."""
+    rows = -(-t_in // s)
+    g = torch.Generator().manual_seed(cout + k)
+    y = torch.randn(3, rows, s * cin, generator=g).to(cuda)
+    w = (torch.randn(k * cin, cout, generator=g) * (k * cin) ** -0.5).to(cuda)
+    assert tf32x3_route(y, w, k, cin, False)
+    got = fused_conv_layer(y, w, k, s, cin, gelu_output=True, t_in=t_in)
+    want = fused_conv_layer_plain(y, w, k, s, cin, gelu_output=True, t_in=t_in)
+    torch.cuda.synchronize()
+    t_out = (t_in - k) // s + 1
+    err = (got[:, :t_out] - want[:, :t_out]).abs().max().item()
+    assert err <= 1e-4, err
+
+
+@pytest.mark.parametrize("gelu_in,cin,kernel", [(False, 512, "conv_fe_tf32"),
+                                                (True, 512, "conv_fe_kernel"),
+                                                (False, 48, "conv_fe_kernel")])
+def test_conv_kernel_f32_route_follows_the_arguments(cuda, gelu_in, cin, kernel):
+    """float32 K3: the 3xTF32 kernel without `gelu_input`; the CUDA-core
+    kernel with it, or at a cin that is not a multiple of 32, within 1e-4."""
+    y = torch.randn(2, 300, 2 * cin, device=cuda)
+    w = torch.randn(3 * cin, 512, device=cuda) * (3 * cin) ** -0.5
+    names = _kernel_names(lambda: fused_conv_layer(y, w, 3, 2, cin, gelu_input=gelu_in))
+    assert any(kernel in n for n in names), names
+    assert len([n for n in names if "conv_fe" in n]) == 1, names
+    got = fused_conv_layer(y, w, 3, 2, cin, gelu_input=gelu_in)
+    want = fused_conv_layer_plain(y, w, 3, 2, cin, gelu_input=gelu_in)
+    torch.cuda.synchronize()
+    t_out = (600 - 3) // 2 + 1
+    assert (got[:, :t_out] - want[:, :t_out]).abs().max().item() <= 1e-4
+
+
+def test_f32_tensor_core_kernels_refuse_misaligned_operands(cuda):
+    """K3's and K1's float32 tensor-core launchers raise on an operand that
+    is not 16-byte aligned; neither sends it to its CUDA-core kernel."""
+    cin = 512
+    y = torch.randn(2, 300, 2 * cin, device=cuda)
+    w = torch.randn(3 * cin, 512, device=cuda) * 0.03
+    assert tf32x3_route(_misaligned(y), w, 3, cin, False)
+    before = fused_conv_layer.launches
+    for yy, split in ((_misaligned(y), None), (y, _misaligned(split_weight_tf32(w)))):
+        with pytest.raises(RuntimeError, match="fused_conv_layer: CUDA error"):
+            fused_conv_layer(yy, w, 3, 2, cin, gelu_output=True, w_split=split)
+    assert fused_conv_layer.launches == before
+    args = _sublayer_inputs(2, 12, 149, torch.float32, cuda)
+    args[1] = _misaligned(args[1])
+    before = wavlm_attention_sublayer.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        wavlm_attention_sublayer(*args, num_heads=12, seq_len=149)
+    assert wavlm_attention_sublayer.launches == before
 
 
 class _Tower(torch.nn.Module):
