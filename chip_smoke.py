@@ -31,9 +31,8 @@ Phases (the first failure ends the run with a non-zero exit code):
                the tensor cores, 495 / 3 TFLOP/s, beside the 67 TFLOP/s of
                the CUDA cores).  K1's and K3's device time per launch by
                kernel name (`torch.profiler`), which also names the kernel
-               each dtype ran.  K3 and K1 run on the tensor cores in both
-               dtypes (wgmma, mma.sync; float32 as 3xTF32 split products), K2
-               in bfloat16.
+               each dtype ran.  K3, K1 and K2 run on the tensor cores in both
+               dtypes (wgmma, mma.sync; float32 as 3xTF32 split products).
   4. serve   - the flagship model (xattn + WavLM-base 12x768 + ResNet18,
                concat head, mean pooling, d_model 128) with random weights
                from a seeded generator, saved as a reference-format .pt and
@@ -76,7 +75,8 @@ Phases (the first failure ends the run with a non-zero exit code):
                gradients (with and without dropout, from a seeded cotangent)
                against the plain versions; two runs of K2 bit-identical;
                device times behind the plug, and K2's bound; K2's device
-               time per launch by kernel name in bfloat16 (`torch.profiler`).
+               time per launch by kernel name in both dtypes
+               (`torch.profiler`), which also names the kernels of K2's route.
   9. train   - `EmotionTrainer` on the full-width flagship, two-stage, batch
                16 (uint8 video with brightness and noise replayed on the
                device, float32 audio), in float32 and in bfloat16 compute
@@ -217,11 +217,15 @@ def _bound_text(limit: dict) -> str:
 
 
 # The kernels each route launches, by profiler name: K1's core and
-# out-projection, and K3, per dtype (their tensor-core routes at these shapes).
+# out-projection, K3, and K2's products and attention passes, per dtype (their
+# tensor-core routes at these shapes).
 ROUTE_KERNELS = {
     "K1": {torch.float32: ("attn_core_tf32", "out_proj_tf32"),
            torch.bfloat16: ("attn_core_mma", "out_proj_mma")},
     "K3": {torch.float32: ("conv_fe_tf32",), torch.bfloat16: ("conv_fe_wgmma",)},
+    "K2": {torch.float32: ("bwd_transpose_tf32", "bwd_proj_tf32", "bwd_query_tf32",
+                           "bwd_key_tf32"),
+           torch.bfloat16: ("bwd_proj_mma", "bwd_attn_mma")},
 }
 
 
@@ -233,7 +237,8 @@ def _check_route(label: str, dtype, names) -> bool:
         print(f"{label} {dtype}: the profiler saw no device time; kernels not named")
         return False
     want = ROUTE_KERNELS[label][dtype]
-    cuda_core = ("wavlm_attn_core", "wavlm_attn_out_proj", "conv_fe_kernel")
+    cuda_core = ("wavlm_attn_core", "wavlm_attn_out_proj", "conv_fe_kernel", "bwd_gemm",
+                 "bwd_attn_q", "bwd_attn_kv")
     if not all(any(w in n for n in names) for w in want) or any(
             c in n for c in cuda_core for n in names):
         raise AssertionError(f"{label} {dtype}: expected {want} by profiler, saw {sorted(names)}")
@@ -698,12 +703,12 @@ def check_train_kernels(dev, gen):
             key = f"{name}_{label.replace(' ', '_')}"
             k2_report[key] = {
                 "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **limit, "library_ms": None}
-            if dtype == torch.bfloat16:
-                split = profile_steps(kernel, n=5)["kernels"]
-                print(f"K2 {name} B={b} {label} per launch: "
-                      + ", ".join(f"{kernel_name} {t:.4f} ms" for kernel_name, t in split.items())
-                      + f" (sum {sum(split.values()):.4f} ms; CUDA events {ms:.4f} ms)")
-                k2_report[key]["split_ms"] = split
+            split = profile_steps(kernel, n=5)["kernels"]
+            _check_route("K2", dtype, split)
+            print(f"K2 {name} B={b} {label} per launch: "
+                  + ", ".join(f"{kernel_name} {t:.4f} ms" for kernel_name, t in split.items())
+                  + f" (sum {sum(split.values()):.4f} ms; CUDA events {ms:.4f} ms)")
+            k2_report[key]["split_ms"] = split
     return k1_report, k2_report
 
 
@@ -1479,10 +1484,11 @@ def main() -> int:
     tensor_core = {f: n for f, n in spills.items()
                    if any(k in f for k in ("conv_fe_wgmma", "attn_core_mma", "out_proj_mma",
                                            "bwd_proj_mma", "bwd_attn_mma", "conv_fe_tf32",
-                                           "attn_core_tf32", "out_proj_tf32"))}
+                                           "attn_core_tf32", "out_proj_tf32", "bwd_proj_tf32",
+                                           "bwd_query_tf32", "bwd_key_tf32"))}
     print(f"build: spill bytes of the tensor-core kernels {tensor_core}")
-    # 7 bf16 instances, 5 float32 (3xTF32) ones.
-    if len(tensor_core) < 12 or any(tensor_core.values()):
+    # 7 bf16 instances, 10 float32 (3xTF32) ones.
+    if len(tensor_core) < 17 or any(tensor_core.values()):
         raise AssertionError(f"tensor-core kernels missing from the build log or spilling: {tensor_core}")
 
     gen = torch.Generator().manual_seed(SEED)
@@ -1536,13 +1542,14 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on its path")
         kernels.append({"name": name, "route": "cuda", "source": csrc + source,
                         "replaces": replaces, "launches": launches[name], **rep})
-    # The rows above are bfloat16; float32 beside them (K1, K3 on the tensor cores
-    # in 3xTF32; K2: its variants, float32 on CUDA cores).
+    # The rows above are bfloat16; float32 beside them (K1, K3 and K2 on the
+    # tensor cores in 3xTF32; K2's variants, both dtypes, under "variants").
     kernels[0]["float32"], kernels[1]["float32"] = k1["float32"], k3["float32"]
+    kernels[4]["float32"] = k2["float32_dropout"]
     kernels[0]["sources"] = [csrc + "wavlm_attn.cu", csrc + "wavlm_attn_tc.cuh",
                              csrc + "wavlm_attn_tf32.cuh", csrc + "hopper.cuh"]
     kernels[4]["sources"] = [csrc + "wavlm_attn_bwd.cu", csrc + "wavlm_attn_bwd_tc.cuh",
-                             csrc + "hopper.cuh"]
+                             csrc + "wavlm_attn_bwd_tf32.cuh", csrc + "hopper.cuh"]
     kernels[1]["sources"] = [csrc + "conv_fe_tc.cu", csrc + "conv_fe_tf32.cu", csrc + "hopper.cuh",
                              csrc + "conv_fe.cu"]
     # K1's device time per launch by dtype, at each batch it was held at.

@@ -55,9 +55,11 @@ _SIGNATURES = {
     "emo_wavlm_attn_f32": [_P] * 14 + [_I] * 5 + [_F] + _DROPOUT + [_P],
     "emo_wavlm_attn_bf16": [_P] * 14 + [_I] * 5 + [_F] + _DROPOUT + [_P],
     # dout, q, k, v, gate, bias, wo, lns, ctx, proj; the ten gradients; seven
-    # scratch buffers; B, Tp, seq_len, E, H, col_chunks, eps, dropout, stream
-    "emo_wavlm_attn_bwd_f32": [_P] * 27 + [_I] * 6 + [_F] + _DROPOUT + [_P],
-    "emo_wavlm_attn_bwd_bf16": [_P] * 27 + [_I] * 6 + [_F] + _DROPOUT + [_P],
+    # scratch buffers, then the transposed operands (float32 tensor-core
+    # route only, else null); B, Tp, seq_len, E, H, col_chunks, eps, dropout,
+    # stream
+    "emo_wavlm_attn_bwd_f32": [_P] * 28 + [_I] * 6 + [_F] + _DROPOUT + [_P],
+    "emo_wavlm_attn_bwd_bf16": [_P] * 28 + [_I] * 6 + [_F] + _DROPOUT + [_P],
     # as emo_wavlm_attn up to out; then G, B, Tp, seq_len, E, H, eps, stream
     "emo_wavlm_attn_tiled_f32": [_P] * 13 + [_I] * 6 + [_F, _P],
     "emo_wavlm_attn_tiled_bf16": [_P] * 13 + [_I] * 6 + [_F, _P],

@@ -220,6 +220,24 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d[64 x 32] = A[64 x 8] . B[8 x 32] (+ d when `accumulate`): as above, N = 32
+// (16 accumulators a thread).
+__device__ __forceinline__ void wgmma_m64n32k8_tf32(float (&d)[16], uint64_t desc_a,
+                                                    uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // d[64 x 160] = A[64 x 8] . B[8 x 160] (+ d when `accumulate`): as above, N = 160
 // (80 accumulators a thread).
 __device__ __forceinline__ void wgmma_m64n160k8_tf32(float (&d)[80], uint64_t desc_a,

@@ -46,17 +46,21 @@
 // and the seven gradient products need 8.4 GFLOP (0.12 ms at the float32
 // peak outside the tensor cores; launches (4) and (6) do 9.4, recomputing
 // scores and dprobs in both attention passes) against ~85 MB of float32
-// operands (0.03 ms), so operations bound it in float32, where launches
-// (1)-(6) run on CUDA cores with float32 FMAs from shared memory and float32
+// operands (0.03 ms), so operations bound it in float32.  Launches (1)-(6)
+// run on CUDA cores with float32 FMAs from shared memory and float32
 // accumulation of operands rounded to the compute dtype where the TPU kernel
-// rounds them.
+// rounds them: at head widths other than 64 or seq_len > 160.
 //
-// bfloat16 with dh = 64 and seq_len <= 160 (K1's tensor-core rule) takes the
-// tensor cores instead for (3)-(6): `wavlm_attn_bwd_tc.cuh`, one launch for
+// With dh = 64 and seq_len <= 160 (K1's tensor-core rule) the tensor cores
+// take (3)-(6) instead.  bfloat16: `wavlm_attn_bwd_tc.cuh`, one launch for
 // both out-projection products and one attention launch per (head, element)
-// that computes the scores once, all on mma.sync of bf16 into float32.
-// There the bytes (~46 MB at B = 16: 0.014 ms) bound it.  The order is then
-// (1), (2), the two products, the attention backward, (5).
+// that computes the scores once, all on mma.sync of bf16 into float32;
+// there the bytes (~46 MB at B = 16: 0.014 ms) bound it, and the order is
+// (1), (2), the two products, the attention backward, (5).  float32:
+// `wavlm_attn_bwd_tf32.cuh`, 3xTF32 split products on wgmma and mma.sync,
+// the transposes for dW_o, both products in one launch, then a query-side
+// and a key-side attention pass as (4) and (6); the order is (1), (2), the
+// transposes, the products, the two passes, (5).
 //
 // Rows and columns at or past seq_len do not exist for this kernel: it never
 // reads them (K1 leaves them unset) and their gradients are not written (the
@@ -65,6 +69,7 @@
 #include <type_traits>
 
 #include "wavlm_attn_bwd_tc.cuh"
+#include "wavlm_attn_bwd_tf32.cuh"
 
 namespace {
 
@@ -477,8 +482,8 @@ int launch(const void* dout, const void* q, const void* k, const void* v,
            const void* ctx, const void* pre, void* dhidden, void* dq, void* dk,
            void* dv, void* dgate, void* dbias, void* dwo, void* dbo, void* dlns,
            void* dlnb, void* dproj, void* dctx, void* rowstats, void* colpart,
-           void* dbias_part, void* lse, void* delta, int B, int Tp, int seq_len,
-           int E, int H, int col_chunks, float eps, int seed, unsigned attn_thr,
+           void* dbias_part, void* lse, void* delta, void* tscratch, int B, int Tp,
+           int seq_len, int E, int H, int col_chunks, float eps, int seed, unsigned attn_thr,
            float attn_inv, unsigned hid_thr, float hid_inv, void* stream_ptr) {
   const int M = B * Tp;
   if (B < 1 || H < 1 || E % H != 0 || seq_len < 1 || seq_len > Tp ||
@@ -490,19 +495,22 @@ int launch(const void* dout, const void* q, const void* k, const void* v,
   const T* dproj_c = static_cast<const T*>(dproj);
   const T* dctx_c = static_cast<const T*>(dctx);
   cudaError_t err;
-  // bfloat16 at dh = 64 and seq_len <= 160: (3)-(6) on the tensor cores,
-  // whose operands move in 16-byte pieces: misaligned pointers are refused
-  // before anything runs.
+  // dh = 64 and seq_len <= 160: (3)-(6) on the tensor cores (bfloat16
+  // `wavlm_attn_bwd_tc.cuh`, float32 `wavlm_attn_bwd_tf32.cuh`), whose
+  // operands move in 16-byte pieces: misaligned pointers are refused before
+  // anything runs.
   bool tensor_cores = false;
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
     tensor_cores = dh == emo::tcb::kHeadDim && seq_len <= emo::tcb::kMaxKeys;
+  else
+    tensor_cores = dh == emo::tf32b::kHeadDim && seq_len <= emo::tf32b::kMaxKeys;
   if (tensor_cores &&
       ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(wo) |
         reinterpret_cast<uintptr_t>(ctx) | reinterpret_cast<uintptr_t>(dproj) |
         reinterpret_cast<uintptr_t>(dctx) | reinterpret_cast<uintptr_t>(dq) |
         reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv) |
-        reinterpret_cast<uintptr_t>(dwo)) & 15))
+        reinterpret_cast<uintptr_t>(dwo) | reinterpret_cast<uintptr_t>(tscratch)) & 15))
     return cudaErrorMisalignedAddress;
 
   bwd_ln<T><<<(M + kLnWarps - 1) / kLnWarps, kLnWarps * 32, 0, stream>>>(
@@ -524,15 +532,27 @@ int launch(const void* dout, const void* q, const void* k, const void* v,
 
   const size_t per_batch = (size_t)H * Tp * Tp;
   if (tensor_cores) {
-    using bf16 = __nv_bfloat16;
-    err = emo::tcb::launch_proj_and_attn(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const float*>(gate), static_cast<const float*>(bias),
-        static_cast<const bf16*>(wo), static_cast<const bf16*>(ctx),
-        static_cast<const bf16*>(dproj), static_cast<bf16*>(dctx), static_cast<bf16*>(dq),
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<float*>(dgate),
-        static_cast<float*>(dwo), static_cast<float*>(dbias_part), B, Tp, seq_len, E, H,
-        useed, attn_thr, attn_inv, stream);
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      using bf16 = __nv_bfloat16;
+      err = emo::tcb::launch_proj_and_attn(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          static_cast<const float*>(gate), static_cast<const float*>(bias),
+          static_cast<const bf16*>(wo), static_cast<const bf16*>(ctx),
+          static_cast<const bf16*>(dproj), static_cast<bf16*>(dctx), static_cast<bf16*>(dq),
+          static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<float*>(dgate),
+          static_cast<float*>(dwo), static_cast<float*>(dbias_part), B, Tp, seq_len, E, H,
+          useed, attn_thr, attn_inv, stream);
+    } else {
+      err = emo::tf32b::launch_proj_and_attn(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(gate),
+          static_cast<const float*>(bias), static_cast<const float*>(wo),
+          static_cast<const float*>(ctx), static_cast<const float*>(dproj),
+          static_cast<float*>(dctx), static_cast<float*>(dq), static_cast<float*>(dk),
+          static_cast<float*>(dv), static_cast<float*>(dgate), static_cast<float*>(dwo),
+          static_cast<float*>(dbias_part), static_cast<float*>(lse), static_cast<float*>(delta),
+          static_cast<float*>(tscratch), B, Tp, seq_len, E, H, useed, attn_thr, attn_inv, stream);
+    }
     if (err != cudaSuccess) return err;
     bwd_dbias_reduce<<<(unsigned)((per_batch + 255) / 256), 256, 0, stream>>>(
         static_cast<const float*>(dbias_part), static_cast<float*>(dbias), B, H, Tp, seq_len);
@@ -593,14 +613,15 @@ int launch(const void* dout, const void* q, const void* k, const void* v,
       const void* ctx, const void* pre, void* dhidden, void* dq, void* dk,      \
       void* dv, void* dgate, void* dbias, void* dwo, void* dbo, void* dlns,     \
       void* dlnb, void* dproj, void* dctx, void* rowstats, void* colpart,       \
-      void* dbias_part, void* lse, void* delta, int B, int Tp, int seq_len,     \
-      int E, int H, int col_chunks, float eps, int seed, unsigned attn_thr,     \
-      float attn_inv, unsigned hid_thr, float hid_inv, void* stream) {          \
+      void* dbias_part, void* lse, void* delta, void* tscratch, int B, int Tp,  \
+      int seq_len, int E, int H, int col_chunks, float eps, int seed,           \
+      unsigned attn_thr, float attn_inv, unsigned hid_thr, float hid_inv,       \
+      void* stream) {                                                           \
     return launch<T>(dout, q, k, v, gate, bias, wo, lns, ctx, pre, dhidden, dq, \
                      dk, dv, dgate, dbias, dwo, dbo, dlns, dlnb, dproj, dctx,   \
-                     rowstats, colpart, dbias_part, lse, delta, B, Tp, seq_len, \
-                     E, H, col_chunks, eps, seed, attn_thr, attn_inv, hid_thr,  \
-                     hid_inv, stream);                                          \
+                     rowstats, colpart, dbias_part, lse, delta, tscratch, B,    \
+                     Tp, seq_len, E, H, col_chunks, eps, seed, attn_thr,        \
+                     attn_inv, hid_thr, hid_inv, stream);                       \
   }
 
 EMO_WAVLM_ATTN_BWD_ENTRY(emo_wavlm_attn_bwd_f32, float)

@@ -13,11 +13,13 @@ LayerNorm.  With a head width of 64 and `seq_len` <= 160 (the WavLM models:
 `tensor_core_route`), in float32 `csrc/wavlm_attn_tf32.cuh` (TF32 with
 split products, 3xTF32, at float32 accuracy: the scores and the
 out-projection on wgmma, P.V on mma.sync; `tf32x3_route`; the wrapper passes
-W_o transposed, a per-call copy); at other shapes on CUDA cores.  K2 follows `tensor_core_route`: on that route
-its out-projection products and its attention backward run on the tensor
-cores (`csrc/wavlm_attn_bwd_tc.cuh`, six launches in all), elsewhere, float32
-included, on CUDA cores (eight launches).  The choice follows from the
-arguments alone.
+W_o transposed, a per-call copy); at other shapes on CUDA cores.  K2 follows
+the same two rules: its out-projection products and its attention backward
+run on the tensor cores, in bfloat16 `csrc/wavlm_attn_bwd_tc.cuh` (six
+launches in all), in float32 `csrc/wavlm_attn_bwd_tf32.cuh` (3xTF32: the
+products and the scores on wgmma, dQ, dK and dV on mma.sync, a query-side
+and a key-side pass; eight launches); at other shapes on CUDA cores (eight
+launches).  The choice follows from the arguments alone.
 
 `wavlm_attention_sublayer` keeps the JAX function's public layout: q/k/v in
 their natural [B, Tp, E] layout with q pre-scaled by dh^-0.5, the per-query
@@ -55,6 +57,7 @@ from multimodalemotionrecognition_torch.kernels.build import check, load_library
 
 __all__ = [
     "backward_attention_smem_bytes",
+    "backward_tf32_smem_bytes",
     "drop_threshold",
     "hash_keep_plain",
     "forward_core_smem_bytes",
@@ -78,6 +81,9 @@ _TC_HEAD_DIM, _TC_MAX_KEYS, _TC_ROW_STRIDE = 64, 160, 72
 # K1's float32 tensor-core core (csrc/wavlm_attn_tf32.cuh): the same head
 # width and key count, 64 query rows; Q and K as hi and lo in 128-byte rows.
 _TF32_CORE_ROWS = 64
+# K2's float32 tensor-core passes (csrc/wavlm_attn_bwd_tf32.cuh): kRows query
+# or key rows a block; kRowBytes, a row of 64 float32 as hi and lo.
+_TF32_BWD_ROWS, _TF32_BWD_ROW_BYTES = 64, 512
 
 
 def tensor_core_route(hidden: torch.Tensor, num_heads: int, seq_len: int) -> bool:
@@ -91,10 +97,11 @@ def tensor_core_route(hidden: torch.Tensor, num_heads: int, seq_len: int) -> boo
 
 
 def tf32x3_route(hidden: torch.Tensor, num_heads: int, seq_len: int) -> bool:
-    """True when K1 runs its float32 tensor-core kernels (3xTF32) on these
-    arguments: float32, a head width of 64 and `seq_len` <= 160.  Otherwise,
-    in float32, its CUDA-core kernels run.  K2 keeps its CUDA-core kernels
-    in float32 (`tensor_core_route`)."""
+    """True when K1 and K2 run their float32 tensor-core kernels (3xTF32) on
+    these arguments: float32, a head width of 64 and `seq_len` <= 160.
+    Otherwise, in float32, their CUDA-core kernels run.  As with
+    `tensor_core_route`, a misaligned operand is refused by the kernel with
+    an error, never sent to the CUDA-core kernels."""
     return (hidden.dtype == torch.float32 and hidden.shape[-1] == _TC_HEAD_DIM * num_heads
             and seq_len <= _TC_MAX_KEYS)
 
@@ -120,6 +127,22 @@ def backward_attention_smem_bytes(seq_len: int) -> int:
         raise ValueError(f"seq_len={seq_len} outside the tensor-core route (1 to {_TC_MAX_KEYS})")
     keys = 64 if seq_len <= 64 else _TC_MAX_KEYS
     return 2 * (4 * keys * _TC_ROW_STRIDE + 2 * keys * (keys + 8))
+
+
+def backward_tf32_smem_bytes(seq_len: int) -> Tuple[int, int]:
+    """Shared memory of one block of K2's float32 tensor-core query-side and
+    key-side passes (`query_smem_bytes`, `key_smem_bytes` in
+    csrc/wavlm_attn_bwd_tf32.cuh): two 64-row tiles (Q and dctx of the query
+    tile, or K and V of the key tile) and two tiles of every key or query
+    (K and V, or Q and dctx), all as TF32 hi and lo, padded to 64 keys up to
+    seq_len 64 and to 160 above; then the query tile's row terms D, or every
+    query's log-sum-exp, D and gate; and 1 KB of alignment.  -> (query pass,
+    key pass)."""
+    if not 1 <= seq_len <= _TC_MAX_KEYS:
+        raise ValueError(f"seq_len={seq_len} outside the tensor-core route (1 to {_TC_MAX_KEYS})")
+    keys = 64 if seq_len <= 64 else _TC_MAX_KEYS
+    tiles = _TF32_BWD_ROW_BYTES * (2 * _TF32_BWD_ROWS + 2 * keys) + 1024
+    return tiles + 4 * _TF32_BWD_ROWS, tiles + 3 * 4 * keys
 
 
 # ---------------------------------------------------------------------------
@@ -449,6 +472,8 @@ def wavlm_attention_sublayer_backward(
         raise ValueError(f"E={e} > 1024 is not supported by the K2 kernel")
     if tensor_core_route(hidden, h, seq_len):
         smem = backward_attention_smem_bytes(seq_len)
+    elif tf32x3_route(hidden, h, seq_len):
+        smem = max(backward_tf32_smem_bytes(seq_len))
     else:
         smem = 4 * (2 * seq_len * (dh + 1) + 16 * (dh + seq_len) + 3 * seq_len)
     if smem > _MAX_SMEM:
@@ -471,16 +496,21 @@ def wavlm_attention_sublayer_backward(
         torch.empty(b * tp, 4, dtype=f32, device=dev),  # per row: mean, rstd, two row means
         torch.empty(col_chunks, 3, e, dtype=f32, device=dev),  # column-sum partials
         torch.empty(b, h * tp, tp, dtype=f32, device=dev),  # bias partials, one per batch element
-        # CUDA-core route only: log-sum-exp and softmax row term per (head, query)
+        # float32 only: log-sum-exp and softmax row term per (head, query)
         torch.empty(b, h * tp, dtype=f32, device=dev),
         torch.empty(b, h * tp, dtype=f32, device=dev),
     )
+    # The float32 tensor-core route's transposed ctx and dproj ([2, E, B*Tp
+    # rounded up to 4]): TF32 wgmma reads both operands of dW_o K-major.
+    transposed = (torch.empty(2, e, -(-(b * tp) // 4) * 4, dtype=f32, device=dev)
+                  if tf32x3_route(hidden, h, seq_len) else None)
     outputs = (dhidden, dq, dk, dv, dgate, dbias, dwo, dbo, dlns, dlnb)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             *(t.data_ptr() for t in (dout, q, k, v, gate, position_bias, wo, ln_scale, ctx, pre,
                                      *outputs, *scratch)),
+            None if transposed is None else transposed.data_ptr(),
             b, tp, seq_len, e, h, col_chunks, eps,
             *_dropout_args(attn_dropout, hidden_dropout, dropout_seed), stream,
         )

@@ -417,26 +417,34 @@ def test_attention_backward_behind_the_kernel_forward(cuda, dtype):
         assert torch.equal(x, z), f"d{name} differs between two runs"
 
 
-# K2's kernels by route: the tensor-core ones (bf16, dh 64, seq_len <= 160)
-# and the CUDA-core ones, which that route must not launch.
-K2_TENSOR_CORE = ("bwd_proj_mma", "bwd_attn_mma")
+# K2's kernels by route: the tensor-core ones (dh 64, seq_len <= 160; bf16
+# `tensor_core_route`, f32 `tf32x3_route`) and the CUDA-core ones, which those
+# routes must not launch.
+K2_TENSOR_CORE = {torch.bfloat16: ("bwd_proj_mma", "bwd_attn_mma"),
+                  torch.float32: ("bwd_transpose_tf32", "bwd_proj_tf32", "bwd_query_tf32",
+                                  "bwd_key_tf32")}
 K2_CUDA_CORE = ("bwd_gemm", "bwd_attn_q", "bwd_attn_kv")
 
 
 @pytest.mark.parametrize(
     "dtype,h,e,tp,seq,tensor_cores",
     [(torch.bfloat16, 12, 768, 149, 149, True), (torch.bfloat16, 12, 768, 37, 37, True),
-     (torch.bfloat16, 4, 256, 96, 77, True), (torch.float32, 12, 768, 149, 149, False),
-     (torch.bfloat16, 12, 768, 161, 161, False), (torch.bfloat16, 4, 768, 37, 37, False)],
-    ids=["bf16-149", "bf16-37", "bf16-4heads-dh64", "f32", "bf16-161", "bf16-4heads-dh192"],
+     (torch.bfloat16, 4, 256, 96, 77, True), (torch.float32, 12, 768, 149, 149, True),
+     (torch.bfloat16, 12, 768, 161, 161, False), (torch.bfloat16, 4, 768, 37, 37, False),
+     (torch.float32, 12, 768, 161, 161, False), (torch.float32, 4, 768, 37, 37, False),
+     (torch.float32, 4, 256, 96, 77, True), (torch.float32, 12, 768, 37, 37, True)],
+    ids=["bf16-149", "bf16-37", "bf16-4heads-dh64", "f32", "bf16-161", "bf16-4heads-dh192",
+         "f32-161", "f32-4heads-dh192", "f32-4heads-dh64", "f32-37"],
 )
 def test_attention_backward_route_follows_the_arguments(cuda, dtype, h, e, tp, seq, tensor_cores):
-    """K2 runs its tensor-core kernels on bf16 at head width 64 and seq_len <=
-    160 and its CUDA-core kernels elsewhere (kernel names by profiler), and
-    its ten gradients agree with the plain backward on either route."""
+    """K2 runs its tensor-core kernels at head width 64 and seq_len <= 160
+    (bf16 on mma.sync, f32 in 3xTF32) and its CUDA-core kernels elsewhere
+    (kernel names by profiler), and its ten gradients agree with the plain
+    backward on either route."""
     args = _sublayer_inputs(2, h, tp, dtype, cuda, seed=21, e=e)
     kw = dict(num_heads=h, seq_len=seq, attn_dropout=0.1, hidden_dropout=0.1, dropout_seed=1357)
-    assert attention_tensor_core_route(args[0], h, seq) is tensor_cores
+    route = attention_tensor_core_route if dtype == torch.bfloat16 else attention_tf32x3_route
+    assert route(args[0], h, seq) is tensor_cores
     dout = torch.randn(2, tp, e, generator=torch.Generator().manual_seed(22)).to(cuda, dtype)
     _, ctx, pre = wavlm_attention_sublayer_forward(*args, **kw)
     got = wavlm_attention_sublayer_backward(dout, *args, ctx, pre, **kw)
@@ -447,22 +455,23 @@ def test_attention_backward_route_follows_the_arguments(cuda, dtype, h, e, tp, s
         err = (x.float() - y.float()).abs().max().item()
         assert err <= GRAD_TOL[dtype] * y.float().abs().max().item(), (name, err)
     names = _kernel_names(lambda: wavlm_attention_sublayer_backward(dout, *args, ctx, pre, **kw))
-    ran, left_out = (K2_TENSOR_CORE, K2_CUDA_CORE) if tensor_cores else (K2_CUDA_CORE,
-                                                                         K2_TENSOR_CORE)
+    other = sum((v for d, v in K2_TENSOR_CORE.items() if d != dtype), ())
+    ran, left_out = ((K2_TENSOR_CORE[dtype], K2_CUDA_CORE + other) if tensor_cores
+                     else (K2_CUDA_CORE, K2_TENSOR_CORE[dtype] + other))
     for name in ran + ("bwd_ln", "bwd_colsum", "bwd_dbias_reduce"):
         assert any(name in n for n in names), (name, names)
     for name in left_out:
         assert not any(name in n for n in names), (name, names)
 
 
-def test_attention_backward_refuses_misaligned_bf16_operands(cuda):
-    """K2's tensor-core route raises on a bf16 operand that is not 16-byte
+def _backward_refuses_misaligned_operands(dtype, device):
+    """K2's tensor-core route raises on an operand that is not 16-byte
     aligned and counts no launch; it never sends it to the CUDA-core kernels."""
     h, tp = 12, 149
-    args = _sublayer_inputs(2, h, tp, torch.bfloat16, cuda, seed=23)
+    args = _sublayer_inputs(2, h, tp, dtype, device, seed=23)
     kw = dict(num_heads=h, seq_len=tp)
     _, ctx, pre = wavlm_attention_sublayer_forward(*args, **kw)
-    dout = torch.randn(2, tp, h * 64, device=cuda, dtype=torch.bfloat16)
+    dout = torch.randn(2, tp, h * 64, device=device, dtype=dtype)
     before = wavlm_attention_sublayer_backward.launches
     for i in (1, 2, 3, 6, None):  # q, k, v, wo, then K1's context
         bad = list(args)
@@ -474,6 +483,18 @@ def test_attention_backward_refuses_misaligned_bf16_operands(cuda):
         with pytest.raises(RuntimeError, match="wavlm_attention_sublayer_backward: CUDA error"):
             wavlm_attention_sublayer_backward(dout, *bad, bad_ctx, pre, **kw)
     assert wavlm_attention_sublayer_backward.launches == before
+
+
+def test_attention_backward_refuses_misaligned_bf16_operands(cuda):
+    """K2's bf16 tensor-core route (mma.sync) refuses misaligned operands."""
+    _backward_refuses_misaligned_operands(torch.bfloat16, cuda)
+
+
+def test_attention_backward_refuses_misaligned_f32_operands(cuda):
+    """K2's f32 tensor-core route (3xTF32: cp.async and TMA) refuses
+    misaligned operands."""
+    assert attention_tf32x3_route(torch.zeros(1, 149, 768), 12, 149)
+    _backward_refuses_misaligned_operands(torch.float32, cuda)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

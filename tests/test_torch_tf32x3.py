@@ -339,3 +339,106 @@ def test_split_product_attention_matches_pallas(tp, seq, attn_p, hid_p):
         interpret=True)
     got = _k1_by_split_products(*map(torch.from_numpy, args), h, seq, attn_p, hid_p, seed)
     np.testing.assert_allclose(got[:, :seq].numpy(), np.asarray(want)[:, :seq], atol=TOL, rtol=0)
+
+
+def _k2_by_split_products(dout, hidden, q, k, v, gate, bias, wo, bo, lns, lnb, h, seq_len,
+                          attn_p, hid_p, seed, eps=1e-5):
+    """K2's float32 tensor-core arithmetic (`csrc/wavlm_attn_bwd_tf32.cuh`):
+    K1's saved context and pre-LayerNorm rows from its split products; the
+    LayerNorm backward in float32; dctx and dW_o with the tensor cores'
+    truncating accumulation folded every four 32-deep steps, dW_o over the
+    B*Tp rows of the transposed operands (zeros past seq_len); the
+    query-side pass (S, the softmax and its log-sum-exp, D = dctx . ctx, dP,
+    dS, dQ, dgate, dbias) and the key-side pass (S^T, P^T from the saved
+    log-sum-exp, dP^T, dS^T with the saved D, dK, dV), every product in
+    three TF32 parts.  -> the ten gradients; rows and columns past seq_len
+    zero, as the kernel leaves them."""
+    b, tp, e = hidden.shape
+    dh = e // h
+    valid = torch.arange(tp) < seq_len
+    rows = valid[None, :, None]
+    hidden, q, k, v, dout = (t * rows for t in (hidden, q, k, v, dout))
+    keep_attn, keep_hid = wavlm_attn._keep_masks(seed, b, h, tp, e, attn_p, hid_p, "cpu")
+    fold = 4 * 32 // 8  # 8-deep steps between folds
+
+    def heads(x):
+        return x.view(b, tp, h, dh).transpose(1, 2)
+
+    def merge(x):
+        return x.transpose(1, 2).reshape(b, tp, e)
+
+    gb = gate.view(b, h, tp, 1) * bias.view(h, tp, tp)  # [b, h, query, key]
+    keys_past = ~valid[None, None, None, :]
+
+    # K1's saved context and pre-LayerNorm rows.
+    s = _mm3(heads(q), heads(k).transpose(-1, -2)) + gb
+    p1 = wavlm_attn._drop(torch.softmax(s.masked_fill(keys_past, -float("inf")), -1),
+                          keep_attn, attn_p)
+    ctx = merge(_mm3(p1, heads(v))) * rows
+    pre = wavlm_attn._drop(_mm3(ctx, wo) + bo.view(e), keep_hid, hid_p) + hidden
+
+    # LayerNorm and residual backward (`bwd_ln`), float32.
+    mean = pre.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((pre - mean) ** 2).mean(-1, keepdim=True) + eps)
+    normed = (pre - mean) * rstd
+    dn = dout * lns.view(e)
+    dpre = rstd * (dn - dn.mean(-1, keepdim=True) - normed * (dn * normed).mean(-1, keepdim=True))
+    dproj = wavlm_attn._drop(dpre, keep_hid, hid_p) * rows
+    dlns = (dout * normed).sum((0, 1)).view(1, e)
+    dlnb = dout.sum((0, 1)).view(1, e)
+    dbo = dproj.sum((0, 1)).view(1, e)
+
+    # (b) the out-projection products, A . B^T with both operands K-major.
+    dctx = _truncating_product(dproj.reshape(-1, e), wo.t(), fold).view(b, tp, e)
+    dwo = _truncating_product(ctx.reshape(-1, e).t(), dproj.reshape(-1, e), fold)
+
+    # (c) the query-side pass.
+    qh, kh, vh, gh = heads(q), heads(k), heads(v), heads(dctx)
+    s = (_mm3(qh, kh.transpose(-1, -2)) + gb).masked_fill(keys_past, -float("inf"))
+    lse = torch.logsumexp(s, -1, keepdim=True)
+    p = torch.softmax(s, -1)
+    d = (gh * heads(ctx)).sum(-1, keepdim=True)
+    ds = p * (wavlm_attn._drop(_mm3(gh, vh.transpose(-1, -2)), keep_attn, attn_p) - d)
+    ds = ds * valid[None, None, :, None]  # rows past seq_len are not stored
+    dq = merge(_mm3(ds, kh))
+    dgate = (ds * bias.view(h, tp, tp)).sum(-1).reshape(b, h * tp, 1)
+    dbias = (gate.view(b, h, tp, 1) * ds).sum(0).reshape(h * tp, tp)
+
+    # (d) the key-side pass: [b, h, key, query], P^T from the saved log-sum-exp.
+    both = valid[:, None] & valid[None, :]
+    p_t = torch.exp(_mm3(kh, qh.transpose(-1, -2)) + gb.transpose(-1, -2)
+                    - lse.transpose(-1, -2)).masked_fill(~both, 0.0)
+    keep_t = None if keep_attn is None else keep_attn.transpose(-1, -2)
+    dv = merge(_mm3(wavlm_attn._drop(p_t, keep_t, attn_p), gh))
+    dp_t = wavlm_attn._drop(_mm3(vh, gh.transpose(-1, -2)), keep_t, attn_p)
+    dk = merge(_mm3(p_t * (dp_t - d.transpose(-1, -2)), qh))
+    return (dpre * rows, dq * rows, dk * rows, dv * rows, dgate, dbias, dwo, dbo, dlns, dlnb)
+
+
+@pytest.mark.parametrize("attn_p,hid_p", [(0.0, 0.0), (0.1, 0.1)], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("tp,seq", [(24, 24), (24, 19)])
+def test_split_product_backward_matches_jax_custom_vjp(tp, seq, attn_p, hid_p):
+    """The ten gradients of the float32 tensor-core K2's arithmetic against
+    the JAX custom VJP (its Pallas backward in interpret mode), within 1e-4
+    of each gradient's largest entry (GRAD_TOL of chip_smoke.py)."""
+    import jax
+
+    b, h, seed = 2, 2, 5
+    args = _attention_inputs(b, h, tp)
+    cot = np.random.default_rng(7).standard_normal(args[0].shape).astype(np.float32)
+    cot[:, seq:] = 0.0  # the forward leaves those rows unspecified
+    kw = dict(num_heads=h, seq_len=seq, attn_dropout=attn_p, hidden_dropout=hid_p)
+    _, vjp = jax.vjp(lambda *a: wavlm_fused_attention_sublayer(
+        *a, **kw, dropout_seed=jnp.asarray([seed], jnp.int32), interpret=True),
+        *map(jnp.asarray, args))
+    want = vjp(jnp.asarray(cot))
+    got = _k2_by_split_products(torch.from_numpy(cot), *map(torch.from_numpy, args), h, seq,
+                                attn_p, hid_p, seed)
+    names = ("hidden", "q", "k", "v", "gate", "bias", "wo", "bo", "lns", "lnb")
+    for name, x, y in zip(names, got, want):
+        y = np.asarray(y)
+        assert x.shape == y.shape, name
+        scale = np.abs(y).max()
+        assert scale > 0.0, name
+        err = np.abs(x.numpy() - y).max()
+        assert err <= TOL * scale, (name, err / scale)
