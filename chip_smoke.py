@@ -18,7 +18,9 @@ Phases (the first failure ends the run with a non-zero exit code):
                whole fusion block (B=8 and B=1, T=8, Ta=149, 512/768 -> 128),
                for the flagship spec and for (attn pool, gated head, prior),
                float and int8 matrices, float32 and bfloat16 tower outputs,
-               one and several samples per block; K5, the attention core,
+               on the route its shapes take (the tensor-core route here): 1, 3
+               and 8 samples per block and a second run bit-identical, and
+               its device time per launch by kernel name; K5, the attention core,
                with and without biases; K6, the batch-tiled attention sublayer
                (B=128 and B=8, Tp=160, seq_len 149, E=768, bfloat16 and
                float32) for G in {1, 2, 4, 8}: against its plain version,
@@ -32,7 +34,8 @@ Phases (the first failure ends the run with a non-zero exit code):
                the CUDA cores).  K1's and K3's device time per launch by
                kernel name (`torch.profiler`), which also names the kernel
                each dtype ran.  K3, K1 and K2 run on the tensor cores in both
-               dtypes (wgmma, mma.sync; float32 as 3xTF32 split products).
+               dtypes (wgmma, mma.sync; float32 as 3xTF32 split products), K4's
+               products as 3xTF32 on mma.sync.
   4. serve   - the flagship model (xattn + WavLM-base 12x768 + ResNet18,
                concat head, mean pooling, d_model 128) with random weights
                from a seeded generator, saved as a reference-format .pt and
@@ -226,6 +229,8 @@ ROUTE_KERNELS = {
     "K2": {torch.float32: ("bwd_transpose_tf32", "bwd_proj_tf32", "bwd_query_tf32",
                            "bwd_key_tf32"),
            torch.bfloat16: ("bwd_proj_mma", "bwd_attn_mma")},
+    "K4": {dtype: ("fb_rows_tc", "fb_video_tc", "fb_audio_tc", "fb_head_tc")
+           for dtype in (torch.float32, torch.bfloat16)},
 }
 
 
@@ -238,7 +243,7 @@ def _check_route(label: str, dtype, names) -> bool:
         return False
     want = ROUTE_KERNELS[label][dtype]
     cuda_core = ("wavlm_attn_core", "wavlm_attn_out_proj", "conv_fe_kernel", "bwd_gemm",
-                 "bwd_attn_q", "bwd_attn_kv")
+                 "bwd_attn_q", "bwd_attn_kv", "fused_block_core", "fused_block_audio_tokens")
     if not all(any(w in n for n in names) for w in want) or any(
             c in n for c in cuda_core for n in names):
         raise AssertionError(f"{label} {dtype}: expected {want} by profiler, saw {sorted(names)}")
@@ -424,7 +429,12 @@ def _fusion_block(gen, dev, int8: bool, **options):
 
 
 def check_k4(dev, gen):
+    """K4 at B=8 and B=1 for two specs, float and int8 matrices, both tower
+    dtypes: against its plain version, bit-identical for 1, 3 and 8 samples
+    per block and across two runs; the route its shapes take; device times
+    (the whole call and, for the flagship in bfloat16, each launch)."""
     from multimodalemotionrecognition_torch.kernels import fused_block, fused_block_plain
+    from multimodalemotionrecognition_torch.kernels.fused_block import tensor_core_route
 
     t, ta, dv, ds = 8, 149, 512, 768
     variants = {
@@ -437,43 +447,68 @@ def check_k4(dev, gen):
         for int8 in (False, True):
             _, params, spec = _fusion_block(gen, dev, int8, **options)
             for dtype in (torch.float32, torch.bfloat16):
-                for b, per_block in ((8, 1), (8, 8), (8, 3), (1, 1)):
+                for b in (8, 1):
                     v_feat = torch.randn(b, t, dv, generator=gen).abs().to(dev, dtype)
                     a_seq = torch.randn(b, ta, ds, generator=gen).to(dev, dtype)
-                    got = fused_block(v_feat, a_seq, params, spec, samples_per_block=per_block)
+                    route = "tensor cores" if tensor_core_route(v_feat, a_seq, params, spec) else "CUDA cores"
+                    runs = {per_block: fused_block(v_feat, a_seq, params, spec,
+                                                   samples_per_block=per_block)
+                            for per_block in (1, 3, 8)}
+                    again = fused_block(v_feat, a_seq, params, spec)
                     want = fused_block_plain(v_feat, a_seq, params, spec)
                     torch.cuda.synchronize()
-                    err = (got - want).abs().max().item()
-                    worst = max(worst, err)
                     name = (f"{variant} {'int8' if int8 else 'float'} "
-                            f"{str(dtype).replace('torch.', '')} B={b} samples/block={per_block}")
-                    line = f"K4 {name}: max_abs_err={err:.3e} (tol {FUSION_TOL})"
-                    if got.shape != (b, 8) or not err <= FUSION_TOL:
-                        raise AssertionError(f"K4 {name} disagrees with its plain version: {err}")
-                    if per_block in (1, 8):
-                        ms = cuda_ms(lambda: fused_block(v_feat, a_seq, params, spec,
-                                                         samples_per_block=per_block))
+                            f"{str(dtype).replace('torch.', '')} B={b}")
+                    identical = all(torch.equal(runs[1], out) for out in (runs[3], runs[8], again))
+                    for per_block, got in runs.items():
+                        err = (got - want).abs().max().item()
+                        worst = max(worst, err)
+                        if got.shape != (b, 8) or not err <= FUSION_TOL:
+                            raise AssertionError(f"K4 {name} samples/block={per_block} disagrees "
+                                                 f"with its plain version: {err}")
+                    err = (runs[1] - want).abs().max().item()
+                    line = (f"K4 {name}: route {route}, max_abs_err={err:.3e} (tol {FUSION_TOL}), "
+                            f"samples/block 1, 3, 8 and a second run bit-identical: {identical}")
+                    if not identical:
+                        raise AssertionError(f"K4 {name}: logits differ across samples per block or runs")
+                    if not int8:
+                        ms = cuda_ms(lambda: fused_block(v_feat, a_seq, params, spec))
                         plain_ms = cuda_ms(lambda: fused_block_plain(v_feat, a_seq, params, spec))
-                        line += f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
-                        if (variant, int8, dtype, b, per_block) == (
-                                "flagship", False, torch.bfloat16, 8, 1):
+                        line += f"; kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
+                        if b == 8:
+                            ms8 = cuda_ms(lambda: fused_block(v_feat, a_seq, params, spec,
+                                                              samples_per_block=8))
+                            line += f", 8 samples per block {ms8:.4f} ms"
+                        if (variant, dtype) == ("flagship", torch.bfloat16):
+                            split = profile_steps(
+                                lambda: fused_block(v_feat, a_seq, params, spec), n=5)["kernels"]
+                            _check_route("K4", dtype, split)
+                            print(f"K4 {name} per launch: "
+                                  + ", ".join(f"{k} {x:.4f} ms" for k, x in split.items()))
+                            key = "" if b == 8 else f"_b{b}"
                             d, c, hid = 128, 8, 256
                             flops = 2 * b * (t * dv * d + ta * ds * d + ta * d * d  # input proj
                                              + 4 * t * d * d + 4 * ta * d * d  # q, k, v, out x 2
                                              + 4 * t * ta * d  # scores and contexts x 2
                                              + 2 * d * hid + hid * c)  # head
-                            moved = nbytes(v_feat, a_seq, got, *params.matrices.values(),
+                            moved = nbytes(v_feat, a_seq, want, *params.matrices.values(),
                                            *params.vectors.values())
-                            report = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                      **bound(flops, moved, torch.float32), "library_ms": None,
-                                      "host_enqueue_ms": enqueue_ms(
-                                          lambda: fused_block(v_feat, a_seq, params, spec)),
-                                      "plain_host_enqueue_ms": enqueue_ms(
-                                          lambda: fused_block_plain(v_feat, a_seq, params, spec))}
-                            line += (f" bound {report['bound_ms']:.5f} ms ({report['bound_by']}; "
-                                     f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB); host enqueue "
-                                     f"kernel {report['host_enqueue_ms']:.4f} ms "
-                                     f"plain {report['plain_host_enqueue_ms']:.4f} ms")
+                            limit = bound(flops, moved, torch.float32)
+                            report.update({f"max_abs_err{key}": err, f"ms{key}": ms,
+                                           f"plain_ms{key}": plain_ms, f"split_ms{key}": split,
+                                           f"route{key}": route,
+                                           **{f"{k}{key}": x for k, x in limit.items()}})
+                            if b == 8:
+                                report.update({
+                                    "library_ms": None, "ms_8_samples_per_block": ms8,
+                                    "host_enqueue_ms": enqueue_ms(
+                                        lambda: fused_block(v_feat, a_seq, params, spec)),
+                                    "plain_host_enqueue_ms": enqueue_ms(
+                                        lambda: fused_block_plain(v_feat, a_seq, params, spec))})
+                                line += (f"; host enqueue kernel {report['host_enqueue_ms']:.4f} ms"
+                                         f" plain {report['plain_host_enqueue_ms']:.4f} ms")
+                            line += (f"; bound {limit['bound_ms']:.5f} ms ({limit['bound_by']}; "
+                                     f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB)")
                     print(line)
     report["max_abs_err_all_variants"] = worst
     return report
@@ -757,7 +792,8 @@ def _profile_window(step, n: int) -> dict:
 
     groups = {"K1": ("::wavlm_attn_", "attn_core_mma", "out_proj_mma", "attn_core_tf32",
                      "out_proj_tf32"),
-              "K2": ("::bwd_",), "K3": ("conv_fe_kernel", "conv_fe_wgmma", "conv_fe_tf32")}
+              "K2": ("::bwd_",), "K3": ("conv_fe_kernel", "conv_fe_wgmma", "conv_fe_tf32"),
+              "K4": ("fb_rows_tc", "fb_video_tc", "fb_audio_tc", "fb_head_tc", "fused_block_")}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1485,10 +1521,13 @@ def main() -> int:
                    if any(k in f for k in ("conv_fe_wgmma", "attn_core_mma", "out_proj_mma",
                                            "bwd_proj_mma", "bwd_attn_mma", "conv_fe_tf32",
                                            "attn_core_tf32", "out_proj_tf32", "bwd_proj_tf32",
-                                           "bwd_query_tf32", "bwd_key_tf32"))}
+                                           "bwd_query_tf32", "bwd_key_tf32", "fb_rows_tc",
+                                           "fb_video_tc", "fb_audio_tc", "fb_head_tc",
+                                           "tc_product"))}
     print(f"build: spill bytes of the tensor-core kernels {tensor_core}")
-    # 7 bf16 instances, 10 float32 (3xTF32) ones.
-    if len(tensor_core) < 17 or any(tensor_core.values()):
+    # 7 bf16 instances, 10 float32 (3xTF32) ones, K4's 6 (3xTF32: the rows
+    # kernel once per tower dtype, three more kernels, their product routine).
+    if len(tensor_core) < 23 or any(tensor_core.values()):
         raise AssertionError(f"tensor-core kernels missing from the build log or spilling: {tensor_core}")
 
     gen = torch.Generator().manual_seed(SEED)
@@ -1552,6 +1591,8 @@ def main() -> int:
                              csrc + "wavlm_attn_bwd_tf32.cuh", csrc + "hopper.cuh"]
     kernels[1]["sources"] = [csrc + "conv_fe_tc.cu", csrc + "conv_fe_tf32.cu", csrc + "hopper.cuh",
                              csrc + "conv_fe.cu"]
+    kernels[2]["sources"] = [csrc + "fused_block.cu", csrc + "fused_block_tc.cuh",
+                             csrc + "fusion.cuh", csrc + "hopper.cuh"]
     # K1's device time per launch by dtype, at each batch it was held at.
     kernels[0]["split_ms"] = {
         name: {"b8": k1[name]["split_ms"], **{

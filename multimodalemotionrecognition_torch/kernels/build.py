@@ -78,7 +78,8 @@ _SIGNATURES = {
 _FUSION_ARGTYPES = [
     ctypes.POINTER(_P), _I, ctypes.POINTER(_I), _I, ctypes.c_float, ctypes.c_float, _P,
 ]
-for _name in ("emo_fused_block_f32", "emo_fused_block_bf16", "emo_xattn"):
+for _name in ("emo_fused_block_f32", "emo_fused_block_bf16", "emo_fused_block_tc_f32",
+              "emo_fused_block_tc_bf16", "emo_xattn"):
     _SIGNATURES[_name] = _FUSION_ARGTYPES
 
 

@@ -20,6 +20,16 @@
 // int8 matrices (weight-only, one float32 scale per output column) are
 // dequantised where they are read (`fusion.cuh::linear`).
 //
+// Two routes.  At the shapes `kernels/fused_block.py::tensor_core_route`
+// takes (T <= 16, Ta >= 16, d a multiple of 32 up to 128, a head width that
+// is a multiple of 4, tower widths that are multiples of 8, shared memory
+// within a block's: the serving shapes), `emo_fused_block_tc_*` runs the
+// four grid-wide tensor-core launches of `fused_block_tc.cuh`.  The CUDA-core
+// kernels below (`emo_fused_block_*`) run every other shape they take: fewer
+// than 16 audio tokens, d past 128 or not a multiple of 32, a head width or a
+// tower width off those multiples, or a block that would need more shared
+// memory.
+//
 // What bounds it on an H100: ~60 MFLOP a sample (half of it a_seq W_aseq)
 // and ~0.6 MB of float32 weights shared by all samples: under the ridge of
 // both units at B <= 8, so it is bound by latency: a chain of ~20 dependent
@@ -39,6 +49,7 @@
 //      B <= 8 leaves >= 124 of 132 SMs idle in (b); accepted for now.
 
 #include "fusion.cuh"
+#include "fused_block_tc.cuh"
 
 using namespace emo::fusion;
 
@@ -262,4 +273,24 @@ extern "C" int emo_fused_block_f32(const void* const* ptrs, int n_ptrs, const in
 extern "C" int emo_fused_block_bf16(const void* const* ptrs, int n_ptrs, const int* ints,
                                     int n_ints, float eps, float qscale, void* stream) {
   return launch<__nv_bfloat16>(ptrs, n_ptrs, ints, n_ints, eps, qscale, stream);
+}
+
+// The tensor-core route (`fused_block_tc.cuh`): the same tables, plus the
+// float32 workspace and its length.
+template <typename T>
+static int launch_tc_entry(const void* const* ptrs, int n_ptrs, const int* ints, int n_ints,
+                           float eps, float qscale, void* stream) {
+  Params p;
+  if (!unpack(ptrs, n_ptrs, ints, n_ints, eps, qscale, &p)) return cudaErrorInvalidValue;
+  return emo::fusion_tc::launch_tc<T>(p, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int emo_fused_block_tc_f32(const void* const* ptrs, int n_ptrs, const int* ints,
+                                      int n_ints, float eps, float qscale, void* stream) {
+  return launch_tc_entry<float>(ptrs, n_ptrs, ints, n_ints, eps, qscale, stream);
+}
+
+extern "C" int emo_fused_block_tc_bf16(const void* const* ptrs, int n_ptrs, const int* ints,
+                                       int n_ints, float eps, float qscale, void* stream) {
+  return launch_tc_entry<__nv_bfloat16>(ptrs, n_ptrs, ints, n_ints, eps, qscale, stream);
 }

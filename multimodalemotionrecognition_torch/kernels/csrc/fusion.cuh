@@ -55,6 +55,7 @@ enum Tensor : int {
   kOut,        // K4: logits [B, C] f32
   kOutV,       // K5: v_emb [B, d] f32
   kOutA,       // K5: a_emb [B, d] f32
+  kWork,       // K4's tensor-core route: float32 workspace (`fused_block_tc.cuh::Work`)
   kNumTensors
 };
 
@@ -64,6 +65,7 @@ enum Matrix : int {
   kEpP0W, kEpP3W, kEpVqW, kEpAkW, kEpAqW, kEpVkW,
   kVpW1, kVpW2, kApW1, kApW2,
   kHW1, kHW2, kGW1, kGW2, kCW,
+  kEpTokW,  // K4's tensor-core route: [d, 4] token parts of the ak, aq, vq, vk score weights
   kNumMatrices
 };
 
@@ -79,7 +81,7 @@ enum Vector : int {
 
 enum Int : int {
   kB = 0, kT, kTa, kDv, kDs, kD, kH, kC, kPoolHidden, kPriorDim, kPriorHidden,
-  kHeadHidden, kPooling, kHead, kBiasMode, kSamplesPerBlock,
+  kHeadHidden, kPooling, kHead, kBiasMode, kSamplesPerBlock, kWorkFloats,
   kNumInts
 };
 
@@ -100,7 +102,7 @@ struct Params {
   Mat m[kNumMatrices];
   const float* v[kNumVectors];
   int B, T, Ta, Dv, Ds, d, H, C, pool_hidden, prior_dim, prior_hidden, head_hidden;
-  int pooling, head, bias_mode, samples_per_block;
+  int pooling, head, bias_mode, samples_per_block, work_floats;
   float eps, qscale;
 };
 
@@ -122,6 +124,7 @@ inline bool unpack(const void* const* ptrs, int n_ptrs, const int* ints, int n_i
   p->prior_hidden = ints[kPriorHidden]; p->head_hidden = ints[kHeadHidden];
   p->pooling = ints[kPooling]; p->head = ints[kHead]; p->bias_mode = ints[kBiasMode];
   p->samples_per_block = ints[kSamplesPerBlock];
+  p->work_floats = ints[kWorkFloats];
   p->eps = eps;
   p->qscale = qscale;  // dh^-0.5, rounded once by the caller
   return p->B >= 1 && p->T >= 1 && p->T <= kMaxT && p->Ta >= 1 && p->d >= 1 &&

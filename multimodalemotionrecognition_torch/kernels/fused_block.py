@@ -23,9 +23,21 @@ TPU kernels.
 operands once (float32 or int8 (in, out) matrices, float32 vectors); do it
 when the model is loaded, not per request.
 
+Two routes on the card, chosen by the shapes alone (`tensor_core_route`):
+the tensor-core route (`csrc/fused_block_tc.cuh`: four grid-wide launches,
+every Linear layer as 3xTF32 split products on wgmma, float32 accuracy)
+for T <= 16 video tokens, Ta >= 16 audio tokens, d a multiple of 32 up to
+128 with a head width that is a multiple of 4, tower widths that are
+multiples of 8 and shared memory within a block's (the serving shapes:
+T 8, Ta 149, d 128, 4 heads, 512 and 768); the CUDA-core kernel
+(`csrc/fused_block.cu`, two launches) for every other shape it takes.  A
+tower output that is not 16-byte aligned is refused by the tensor-core
+route with an error, never sent to the CUDA-core kernel.
+
 For CPU tensors `fused_block` runs `fused_block_plain`; for CUDA tensors it
 launches the kernel or raises.  `fused_block.launches` counts wrapper calls
-that launched the kernel (two CUDA launches each).
+that launched a route (four CUDA launches on the tensor-core route, two on
+the CUDA-core one).
 """
 
 from __future__ import annotations
@@ -51,12 +63,20 @@ __all__ = [
     "extract_block_params",
     "fused_block",
     "fused_block_plain",
+    "tc_smem_bytes",
+    "tc_workspace_floats",
+    "tensor_core_route",
 ]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_VIDEO_TOKENS = 16  # csrc/fusion.cuh::kMaxT
 _MAX_SMEM = 227 * 1024
-
+# csrc/fused_block_tc.cuh: kRows, kMaxCols, kChunk, kRingStages, kXRows, and
+# the shared memory every kernel of the route starts with (kBaseBytes: X's
+# double-buffered hi and lo chunk blocks, the weight ring), plus 1 KB to
+# align it to the swizzle's atoms.
+_TC_ROWS, _TC_MAX_COLS, _TC_CHUNK, _TC_RING_STAGES, _TC_X_ROWS = 16, 128, 32, 3, 32
+_TC_BASE_BYTES = 4 * _TC_X_ROWS * 128 + _TC_RING_STAGES * _TC_CHUNK * (4 * _TC_MAX_COLS + 16)
 
 @dataclasses.dataclass(frozen=True)
 class FusedBlockSpec:
@@ -184,7 +204,13 @@ def extract_block_params(
             mod = f"{stream}_temporal_pool.pool.score.0"
             vectors[f"{stream}p_ln_s"] = f32(f"{mod}.weight").contiguous()
             vectors[f"{stream}p_ln_b"] = f32(f"{mod}.bias").contiguous()
-    return FusedBlockParams(matrices, scales, vectors)
+    params = FusedBlockParams(matrices, scales, vectors)
+    if spec.use_prior:  # the tensor-core route's packed token parts of the score weights
+        d = spec.d_model
+        matrices["ep_tok_w"] = torch.cat(
+            [params.matrix(f"ep_{x}_w")[:d] for x in ("ak", "aq", "vq", "vk")], dim=1
+        ).contiguous()
+    return params
 
 
 def _prior_bias_plain(v, a, p: FusedBlockParams):
@@ -241,6 +267,78 @@ def fused_block_plain(
     return (g * v_emb + (1.0 - g) * a_emb) @ p.matrix("c_w") + vec["c_b"]
 
 
+def _dims(v_feat, a_seq, params: FusedBlockParams, spec: FusedBlockSpec) -> Dict[str, int]:
+    """The integer shapes the kernels take, from the operands' shapes."""
+    m = params.matrices
+    b, t, dv = v_feat.shape
+    prior_hidden, prior_dim = tuple(m["ep_p3_w"].shape) if spec.use_prior else (0, 0)
+    return {
+        "B": b, "T": t, "Ta": a_seq.shape[1], "Dv": dv, "Ds": a_seq.shape[2],
+        "d": spec.d_model, "H": spec.num_heads, "C": spec.num_classes,
+        "pool_hidden": m["ap_w1"].shape[1] if spec.pooling == "attn" else 0,
+        "prior_dim": prior_dim, "prior_hidden": prior_hidden,
+        "head_hidden": m["h_w1"].shape[1] if spec.head == "concat" else spec.d_model,
+    }
+
+
+def _x_stride(k: int) -> int:
+    """Row stride of a shared X tile of width k (csrc/fused_block_tc.cuh::x_stride)."""
+    return -(-k // 32) * 32 + 4
+
+
+def tc_smem_bytes(dims: Mapping[str, int]) -> Dict[str, int]:
+    """Shared memory of each kernel of the tensor-core route
+    (`rows_smem_bytes`, `video_smem_bytes`, `audio_smem_bytes`,
+    `head_smem_bytes` in csrc/fused_block_tc.cuh) for the shapes in `dims`
+    (`_dims`' keys)."""
+    t, ta, d, h, r = dims["T"], dims["Ta"], dims["d"], dims["H"], _TC_ROWS
+    hd = -(-h * t // 16) * 16
+    video_hidden = max(dims["prior_hidden"], dims["pool_hidden"])
+    floats = {
+        "rows": r * (_x_stride(max(dims["Ds"], dims["Dv"])) + 2 * _x_stride(d)),
+        "video": (4 * r * _x_stride(d) + hd * _x_stride(ta) + hd * _x_stride(d)
+                  + _x_stride(2 * d) + r * _x_stride(video_hidden)
+                  + _x_stride(dims["prior_dim"]) + 3 * r),
+        "audio": (6 * r * _x_stride(d) + 2 * t * 2 * d + r * h * t + 2 * t + 4
+                  + r * _x_stride(dims["pool_hidden"]) + 2 * r),
+        "head": r * (_x_stride(2 * d) + _x_stride(max(dims["head_hidden"], d))
+                     + _x_stride(d)) + r,
+    }
+    return {name: 1024 + _TC_BASE_BYTES + 4 * n for name, n in floats.items()}
+
+
+def tc_workspace_floats(b: int, t: int, ta: int, d: int) -> int:
+    """float32 workspace of the tensor-core route (csrc/fused_block_tc.cuh::
+    carve_work): video tokens and queries, the prior's token scores and
+    column sums, the a2v keys and values of v', v_emb, the prior's
+    constants, the pool partials; each piece rounded up to 4 floats."""
+    tiles = -(-b * ta // _TC_ROWS)
+    sizes = (b * t * d, b * t * d, b * t * 2, b * ta * 2, tiles * 2 * d, b * t * 2 * d,
+             b * d, b * 4, tiles * 2 * (2 + d))
+    return sum(-(-n // 4) * 4 for n in sizes)
+
+
+def tensor_core_route(
+    v_feat: torch.Tensor, a_seq: torch.Tensor, params: FusedBlockParams, spec: FusedBlockSpec
+) -> bool:
+    """True when K4 runs its tensor-core route (csrc/fused_block_tc.cuh) on
+    these operands: T <= 16, Ta >= 16 (a 16-row tile holds rows of at most
+    two samples), d a multiple of 32 up to 128 (a product's columns fit its
+    staging), a head width that is a multiple of 4, tower widths that are
+    multiples of 8 (16-byte loads), and every kernel's shared memory within
+    227 KB.  Otherwise the CUDA-core kernel runs.  The shapes alone decide:
+    a misaligned tower output is refused by the route with an error."""
+    return _route_takes(_dims(v_feat, a_seq, params, spec))
+
+
+def _route_takes(dims: Mapping[str, int]) -> bool:
+    d, h = dims["d"], dims["H"]
+    return (dims["T"] <= _MAX_VIDEO_TOKENS and dims["Ta"] >= _TC_ROWS and d % 32 == 0
+            and d <= 128 and (d // h) % 4 == 0 and dims["Dv"] % 8 == 0
+            and dims["Ds"] % 8 == 0
+            and max(tc_smem_bytes(dims).values()) <= _MAX_SMEM)
+
+
 def _validate(v_feat, a_seq, params: FusedBlockParams, spec: FusedBlockSpec):
     if spec.pooling not in ("mean", "attn"):
         raise ValueError(f"pooling={spec.pooling!r}: the fused block takes 'mean' or 'attn'")
@@ -274,7 +372,9 @@ def fused_block(
     samples_per_block: int = 1,
 ) -> torch.Tensor:
     """-> logits [B, num_classes] float32.  `samples_per_block` is the number
-    of samples one thread block of the per-sample kernel walks over."""
+    of samples one thread block of the per-sample launches walks over (the
+    CUDA-core route's second launch; the tensor-core route's video-side and
+    head launches); the logits do not depend on it."""
     _validate(v_feat, a_seq, params, spec)
     if samples_per_block < 1:
         raise ValueError(f"samples_per_block={samples_per_block} must be >= 1")
@@ -285,40 +385,38 @@ def fused_block(
         raise ValueError(f"unsupported device {device}")
     if not (v_feat.is_contiguous() and a_seq.is_contiguous()):
         raise ValueError("v_feat and a_seq must be contiguous")
-    b, t, dv = v_feat.shape
-    ta, ds = a_seq.shape[1], a_seq.shape[2]
-    d, c = spec.d_model, spec.num_classes
-    m = params.matrices
-    pool_hidden = m["ap_w1"].shape[1] if spec.pooling == "attn" else 0
-    prior_hidden, prior_dim = tuple(m["ep_p3_w"].shape) if spec.use_prior else (0, 0)
-    head_hidden = m["h_w1"].shape[1] if spec.head == "concat" else d
-    if t > _MAX_VIDEO_TOKENS or spec.num_heads * t > d or t * dv > ta * d:
-        raise ValueError(f"T={t}, Dv={dv}, Ta={ta}, d={d}: outside what the K4 kernel takes")
-    # csrc/fused_block.cu::core_floats and the row-tile kernel's buffers.
-    hid = -(-max(d, prior_hidden, head_hidden) // 4) * 4
-    core = (2 * ta * d + 5 * t * d + ta * pool_hidden + 3 * d + hid + prior_dim
-            + 2 * t + 2 * ta + max(t, ta) + 8)
-    if 4 * max(core, 16 * (ds + 2 * d)) > _MAX_SMEM:
-        raise ValueError(f"Ta={ta}, d={d}, Ds={ds} need more than {_MAX_SMEM} B of shared memory")
-
-    scratch = torch.empty(4, b, ta, d, dtype=torch.float32, device=device)
-    logits = torch.empty(b, c, dtype=torch.float32, device=device)
-    entry = "emo_fused_block_f32" if v_feat.dtype == torch.float32 else "emo_fused_block_bf16"
-    params.pointer_table().launch(
-        entry,
-        tensors={
-            "v_in": v_feat, "a_in": a_seq, "a_tok": scratch[0], "ka": scratch[1],
-            "va": scratch[2], "qa": scratch[3], "out": logits,
-        },
-        ints={
-            "B": b, "T": t, "Ta": ta, "Dv": dv, "Ds": ds, "d": d, "H": spec.num_heads,
-            "C": c, "pool_hidden": pool_hidden, "prior_dim": prior_dim,
-            "prior_hidden": prior_hidden, "head_hidden": head_hidden,
-            "pooling": int(spec.pooling == "attn"), "head": int(spec.head == "gated"),
+    dims = _dims(v_feat, a_seq, params, spec)
+    b, t, ta, d = dims["B"], dims["T"], dims["Ta"], dims["d"]
+    ints = {**dims, "pooling": int(spec.pooling == "attn"), "head": int(spec.head == "gated"),
             "bias_mode": BIAS_PRIOR if spec.use_prior else BIAS_NONE,
-            "samples_per_block": samples_per_block,
-        },
-    )
+            "samples_per_block": samples_per_block}
+    logits = torch.empty(b, dims["C"], dtype=torch.float32, device=device)
+    tensors = {"v_in": v_feat, "a_in": a_seq, "out": logits}
+    dtype = "f32" if v_feat.dtype == torch.float32 else "bf16"
+    if _route_takes(dims):
+        # One allocation: the audio tokens, their v2a keys and values ([B,
+        # Ta, 2d], a row's keys then its values), their a2v queries, then
+        # the workspace.
+        rows = b * ta * d
+        ints["work_floats"] = tc_workspace_floats(b, t, ta, d)
+        buf = torch.empty(4 * rows + ints["work_floats"], dtype=torch.float32, device=device)
+        tensors.update(a_tok=buf[:rows], ka=buf[rows:3 * rows], qa=buf[3 * rows:4 * rows],
+                       work=buf[4 * rows:])
+        entry = f"emo_fused_block_tc_{dtype}"
+    else:
+        scratch = torch.empty(4, b, ta, d, dtype=torch.float32, device=device)
+        tensors.update(a_tok=scratch[0], ka=scratch[1], va=scratch[2], qa=scratch[3])
+        dv, ds = dims["Dv"], dims["Ds"]
+        if t > _MAX_VIDEO_TOKENS or spec.num_heads * t > d or t * dv > ta * d:
+            raise ValueError(f"T={t}, Dv={dv}, Ta={ta}, d={d}: outside what the K4 kernel takes")
+        # csrc/fused_block.cu::core_floats and the row-tile kernel's buffers.
+        hid = -(-max(d, dims["prior_hidden"], dims["head_hidden"]) // 4) * 4
+        core = (2 * ta * d + 5 * t * d + ta * dims["pool_hidden"] + 3 * d + hid
+                + dims["prior_dim"] + 2 * t + 2 * ta + max(t, ta) + 8)
+        if 4 * max(core, 16 * (ds + 2 * d)) > _MAX_SMEM:
+            raise ValueError(f"Ta={ta}, d={d}, Ds={ds} need more than {_MAX_SMEM} B of shared memory")
+        entry = f"emo_fused_block_{dtype}"
+    params.pointer_table().launch(entry, tensors=tensors, ints=ints)
     fused_block.launches += 1
     return logits
 

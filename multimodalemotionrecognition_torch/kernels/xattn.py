@@ -46,13 +46,13 @@ LN_EPS = 1e-5
 # The entry points' tables, in the order of csrc/fusion.cuh's enums.
 TENSOR_SLOTS = (
     "v_in", "a_in", "bias_v2a", "bias_a2v", "a_tok", "ka", "va", "qa",
-    "out", "out_v", "out_a",
+    "out", "out_v", "out_a", "work",
 )
 MATRIX_SLOTS = (
     "vin_w", "aseq_w", "ain_w", "v2a_in_w", "v2a_out_w", "a2v_in_w", "a2v_out_w",
     "ep_p0_w", "ep_p3_w", "ep_vq_w", "ep_ak_w", "ep_aq_w", "ep_vk_w",
     "vp_w1", "vp_w2", "ap_w1", "ap_w2",
-    "h_w1", "h_w2", "g_w1", "g_w2", "c_w",
+    "h_w1", "h_w2", "g_w1", "g_w2", "c_w", "ep_tok_w",
 )
 VECTOR_SLOTS = (
     "vin_b", "aseq_b", "ain_b", "v2a_in_b", "v2a_out_b", "a2v_in_b", "a2v_out_b",
@@ -64,6 +64,7 @@ VECTOR_SLOTS = (
 INT_SLOTS = (
     "B", "T", "Ta", "Dv", "Ds", "d", "H", "C", "pool_hidden", "prior_dim",
     "prior_hidden", "head_hidden", "pooling", "head", "bias_mode", "samples_per_block",
+    "work_floats",
 )
 BIAS_NONE, BIAS_PRIOR, BIAS_EXTERNAL = 0, 1, 2
 _TENSOR_INDEX = {name: i for i, name in enumerate(TENSOR_SLOTS)}

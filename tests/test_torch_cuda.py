@@ -765,6 +765,72 @@ def test_fused_block_kernel_refuses_what_it_does_not_take(cuda):
         fused_block(torch.randn(2, 40, 512, device=cuda), a_seq, params, spec)
 
 
+_K4_TENSOR_CORE = ("fb_rows_tc", "fb_video_tc", "fb_audio_tc", "fb_head_tc")
+_K4_CUDA_CORE = ("fused_block_audio_tokens", "fused_block_core")
+
+
+@pytest.mark.parametrize(
+    "ta,ds,dv,tensor_cores",
+    [(149, 768, 512, True), (16, 768, 512, True), (15, 768, 240, False), (149, 772, 512, False)],
+    ids=["serving", "ta16", "ta15", "ds772"],
+)
+def test_fused_block_route_follows_the_shapes(cuda, ta, ds, dv, tensor_cores):
+    """Ta=15 (with towers narrow enough for the CUDA-core kernel, which stages
+    v_feat in a [Ta, d] buffer) and Ds=772 (not a multiple of 8) take the
+    CUDA-core kernel; the serving shapes and Ta=16 the tensor-core route."""
+    from multimodalemotionrecognition_torch.kernels.fused_block import tensor_core_route
+
+    _, params, spec = _fusion_block(cuda, "attn", "gated", True, int8=False)
+    for name, width in (("aseq_w", ds), ("vin_w", dv)):
+        if params.matrices[name].shape[0] != width:  # another tower width
+            params.matrices[name] = torch.randn(width, 128, device=cuda) * width**-0.5
+            params._table = None
+    g = torch.Generator().manual_seed(6)
+    v_feat = torch.randn(2, 8, dv, generator=g).abs().to(cuda)
+    a_seq = torch.randn(2, ta, ds, generator=g).to(cuda)
+    assert tensor_core_route(v_feat, a_seq, params, spec) is tensor_cores
+    names = _kernel_names(lambda: fused_block(v_feat, a_seq, params, spec))
+    want, other = (_K4_TENSOR_CORE, _K4_CUDA_CORE) if tensor_cores else (_K4_CUDA_CORE, _K4_TENSOR_CORE)
+    assert all(any(w in n for n in names) for w in want), names
+    assert not any(o in n for o in other for n in names), names
+    got = fused_block(v_feat, a_seq, params, spec)
+    assert (got - fused_block_plain(v_feat, a_seq, params, spec)).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize(
+    "pooling,head,prior", [("mean", "concat", False), ("attn", "gated", True)],
+    ids=["mean_concat", "attn_gated_prior"],
+)
+def test_fused_block_tensor_core_route_is_bit_identical_across_blocks_and_runs(
+    cuda, pooling, head, prior, b, int8, dtype
+):
+    _, params, spec = _fusion_block(cuda, pooling, head, prior, int8)
+    g = torch.Generator().manual_seed(7)
+    v_feat = torch.randn(b, 8, 512, generator=g).abs().to(cuda, dtype)
+    a_seq = torch.randn(b, 149, 768, generator=g).to(cuda, dtype)
+    runs = [fused_block(v_feat, a_seq, params, spec, samples_per_block=k) for k in (1, 3, 8, 1)]
+    want = fused_block_plain(v_feat, a_seq, params, spec)
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    assert (runs[0] - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("which", ["v_feat", "a_seq"])
+def test_fused_block_tensor_core_route_refuses_misaligned_towers(cuda, which):
+    _, params, spec = _fusion_block(cuda, "mean", "concat", False, int8=False)
+    shapes = {"v_feat": (2, 8, 512), "a_seq": (2, 149, 768)}
+    tensors = {k: torch.randn(*shape, device=cuda) for k, shape in shapes.items()}
+    shape = shapes[which]  # the same shape, one float past a 16-byte boundary
+    tensors[which] = torch.randn(int(torch.tensor(shape).prod()) + 1, device=cuda)[1:].view(shape)
+    before = fused_block.launches
+    with pytest.raises(RuntimeError, match="misaligned"):
+        fused_block(tensors["v_feat"], tensors["a_seq"], params, spec)
+    assert fused_block.launches == before
+
+
 @pytest.mark.parametrize("with_bias", [False, True], ids=["no_bias", "bias"])
 @pytest.mark.parametrize("b,ta", [(8, 149), (3, 37)])
 def test_xattn_kernel_matches_plain(cuda, b, ta, with_bias):
