@@ -2,7 +2,8 @@
 """GPU smoke run of the PyTorch port: build, check and time its kernels,
 serve the flagship model at full width through `TorchModelRunner`, run the
 measurement entry points, serve the other model families, and train the
-flagship through `EmotionTrainer`.
+flagship through `EmotionTrainer` (with gradient accumulation, the alignment
+loss, the branch warm start, resume and the test confusion matrix).
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
@@ -102,6 +103,29 @@ Phases (the first failure ends the run with a non-zero exit code):
                the same seeded state on the CPU, 3 steps with finite losses,
                every parameter and BatchNorm statistic moved, the saved
                checkpoint through `TorchModelRunner` gives the eval loss.
+
+  10. train rest - the rest of `EmotionTrainer` at full width, batch 16, in
+               float32 and bfloat16: the flagship two-stage with
+               `grad_accum=2`, two stage-2 steps with launches counted per
+               microbatch (12 K1 less the LayerDrop skips, 6 K3, one K2 per
+               trainable layer that ran, twice a step); a resume file saved
+               after them, restored into a fresh trainer, one more step on
+               both (cuDNN's deterministic algorithms for that step):
+               parameters, buffers and moments bit-identical; step time and
+               peak memory with `grad_accum` 1 against 2, in turns; with
+               every stochastic op of the train forward off, the gradients
+               of accum 2 on [m, m] against accum 1 on m (8 clips: 1e-5 /
+               1e-3 of each largest entry); gated + WavLM with the CLIP
+               alignment loss, accum 2, three steps (the loss finite,
+               non-zero, moving; the same launch counts); raw torchvision
+               resnet18 (with `fc.*`) and HF WavLMModel (positional conv as
+               weight-norm g and v) state dicts made here from seeded random
+               tensors, converted by `convert/pretrained.py`, the flagship
+               warm-started from them (every branch tensor bit-equal to its
+               source, the positional conv within 1e-6 of g * v / |v|), one
+               step; `fit` with a test loader: `confusion_matrix.csv` sums to
+               the valid test clips and equals the eval predictions' matrix.
+               The phase's wall time.
 
 The line before the last two is the JSON kernel report; then the card's
 line; the last line is {"ok": true, "device": {...}}.
@@ -1050,6 +1074,346 @@ def train_families(dev, card, tmp):
     return report
 
 
+# Phase 10: the duplicated-microbatch check's tolerance, relative to each
+# gradient's largest entry.  `.grad` accumulates in float32 and the halved
+# loss scale is a power of two, so the sum of two equal halves is exact;
+# what is left is cuDNN's and cuBLAS's backward, whose sum order may vary
+# between two calls.
+ACCUM_GRAD_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
+# WavLM's stochastic ops off (dropouts, LayerDrop, span masking).
+WAVLM_NO_NOISE = dict(hidden_dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,
+                      feat_proj_dropout=0.0, layerdrop=0.0, apply_spec_augment=False)
+RESUME_STEPS = 2
+
+
+def _record_layers_run(model) -> list:
+    """-> a list that gets WavLM's `layers_run` after each of its forwards
+    (one per microbatch)."""
+    runs: list = []
+    model.audio_model.wavlm.register_forward_hook(lambda m, i, o: runs.append(list(m.layers_run)))
+    return runs
+
+
+def _accum_step(trainer, state, batch, counters, runs, trainable, label, reset=False) -> dict:
+    """One train step through `run_epoch`, its launches checked against what
+    each microbatch's forward ran: 12 K1 less the LayerDrop skips, 6 K3,
+    one K2 per trainable encoder layer that ran.  -> metrics."""
+    mask, lrs = trainer.trainable_mask(2), trainer.lr_tree(2, {})
+    runs.clear()
+    seen = {name: fn.launches for name, fn in counters.items()}
+    _, metrics = trainer.run_epoch(state, [batch], True, mask, lrs, reset_opt_first=reset)
+    got = {name: fn.launches - seen[name] for name, fn in counters.items()}
+    want = {"wavlm_attention_sublayer": sum(len(r) for r in runs),
+            "fused_conv_layer": 6 * len(runs),
+            "wavlm_attention_sublayer_backward": sum(len(trainable & set(r)) for r in runs)}
+    print(f"{label}: loss {metrics['loss']:.4f} contrastive {metrics['contrastive_loss']:.4f}, "
+          f"layers run per microbatch {runs}, launches {got}")
+    if len(runs) != trainer.tc.grad_accum or got != want or any(r[0] != 0 for r in runs):
+        raise AssertionError(f"{label}: launches {got}, expected {want} over {len(runs)} microbatches")
+    if not np.isfinite(metrics["loss"]):
+        raise AssertionError(f"{label}: loss {metrics['loss']}")
+    return metrics
+
+
+def _raw_pretrained(model, gen):
+    """Raw state dicts in the layouts the converters read, from seeded random
+    tensors shaped like the flagship's branches: torchvision's resnet18 (with
+    its 1000-class `fc.*`) and HF `WavLMModel`'s (the positional conv as
+    weight-norm g and v).  -> (torchvision dict, HF dict)."""
+    def rand_like(name, t):
+        if t.dtype == torch.int64:
+            return torch.tensor(3, dtype=torch.int64)
+        if name.endswith("running_var"):
+            return torch.rand(t.shape, generator=gen) + 0.5
+        return torch.randn(t.shape, generator=gen) * 0.05
+
+    children = {"0": "conv1", "1": "bn1", "4": "layer1", "5": "layer2", "6": "layer3", "7": "layer4"}
+    video = {}
+    for name, t in model.video_model.state_dict().items():
+        head, index, rest = name.split(".", 2)
+        if head != "backbone":
+            raise AssertionError(f"the video branch has a key outside the backbone: {name}")
+        video[f"{children[index]}.{rest}"] = rand_like(name, t)
+    video["fc.weight"] = torch.randn(1000, 512, generator=gen) * 0.05
+    video["fc.bias"] = torch.randn(1000, generator=gen) * 0.05
+    audio = {}
+    for name, t in model.audio_model.state_dict().items():
+        key = name.removeprefix("wavlm.")
+        if key == "encoder.pos_conv_embed.conv.weight":
+            audio["encoder.pos_conv_embed.conv.weight_g"] = torch.rand(1, 1, t.shape[2], generator=gen) + 0.5
+            audio["encoder.pos_conv_embed.conv.weight_v"] = torch.randn(t.shape, generator=gen) * 0.05
+        else:
+            audio[key] = rand_like(name, t)
+    return video, audio
+
+
+def train_rest(dev, card, tmp):
+    """Phase 10 -> (launches of its train steps, report).  In float32 and
+    bfloat16 at full width, batch 16: the flagship with `grad_accum=2` (two
+    stage-2 steps, launches per microbatch), resumed from a file against the
+    run that went on, the accumulated gradients of [m, m] against one
+    microbatch m with every stochastic op off, step time and peak memory for
+    accum 1 against accum 2; gated + WavLM with the CLIP alignment loss; the
+    flagship warm-started from raw torchvision / HF layouts through
+    `convert/pretrained.py`; `fit` with a test loader and its confusion
+    matrix."""
+    import dataclasses
+
+    from multimodalemotionrecognition_torch.config import ModelConfig, TrainConfig
+    from multimodalemotionrecognition_torch.convert.pretrained import convert_pretrained
+    from multimodalemotionrecognition_torch.kernels import (
+        fused_conv_layer,
+        wavlm_attention_sublayer,
+        wavlm_attention_sublayer_backward,
+    )
+    from multimodalemotionrecognition_torch.models import fusion, temporal
+    from multimodalemotionrecognition_torch.train import EmotionTrainer
+    from multimodalemotionrecognition_torch.utils.metrics import confusion_matrix
+
+    t_phase = time.perf_counter()
+    counters = {"wavlm_attention_sublayer": wavlm_attention_sublayer,
+                "fused_conv_layer": fused_conv_layer,
+                "wavlm_attention_sublayer_backward": wavlm_attention_sublayer_backward}
+    trainable = {10, 11}  # the flagship's stage-2 encoder layers
+    flagship = dict(fusion="xattn", use_wavlm=True)
+    launches = dict.fromkeys(counters, 0)
+    report = {}
+    raw = None  # the warm start's raw state dicts, shaped like the flagship's branches
+    for dtype in ("float32", "bfloat16"):
+        rep = report[dtype] = {"batch": TRAIN_BATCH}
+
+        def make(model_kw, **train_kw):
+            trainer = EmotionTrainer(
+                ModelConfig(**model_kw, compute_dtype=dtype),
+                TrainConfig(two_stage_training=True, seed=SEED, output_dir=str(tmp), **train_kw),
+                device=dev)
+            return trainer, trainer.init_state()
+
+        batches = _train_batches(RESUME_STEPS + 2, SEED + 10)
+
+        # The main path: the flagship, grad_accum=2, counters from 0.
+        trainer, state = make(flagship, grad_accum=2)
+        if raw is None:
+            raw = _raw_pretrained(state.model, torch.Generator().manual_seed(SEED + 12))
+        runs = _record_layers_run(state.model)
+        trainer.run_epoch(state, batches[-1:], False)  # cuDNN's algorithm choice
+        for fn in counters.values():
+            fn.launches = 0
+        for i in range(RESUME_STEPS):
+            _accum_step(trainer, state, batches[i], counters, runs, trainable,
+                        f"train rest {dtype} flagship accum 2 step {i}", reset=i == 0)
+        for name, fn in counters.items():
+            launches[name] += fn.launches
+        if state.opt_state.count != RESUME_STEPS:
+            raise AssertionError(f"accum 2: {state.opt_state.count} optimizer steps for "
+                                 f"{RESUME_STEPS} train steps")
+
+        # Resume: save, restore into a fresh trainer, one more step on both.
+        # cuDNN's deterministic algorithms for that step on both sides: the
+        # default choice may sum with atomics, and then two runs of the same
+        # step differ in the last bits.
+        trainer.save_resume_state(Path(tmp) / f"resume_{dtype}", state, 1, 0.25)
+        fresh = EmotionTrainer(trainer.mc, trainer.tc, device=dev)
+        restored, epoch, best_f1 = fresh.restore_resume_state(Path(tmp) / f"resume_{dtype}")
+        if (epoch, best_f1, restored.step, restored.opt_state.count) != (
+                1, 0.25, state.step, state.opt_state.count):
+            raise AssertionError(f"resume: epoch {epoch}, best F1 {best_f1}, step {restored.step}")
+        fresh_runs = _record_layers_run(restored.model)
+        torch.backends.cudnn.deterministic = True
+        try:
+            went_on = _accum_step(trainer, state, batches[RESUME_STEPS], counters, runs, trainable,
+                                  f"train rest {dtype} step after the save, the run that went on")
+            resumed = _accum_step(fresh, restored, batches[RESUME_STEPS], counters, fresh_runs,
+                                  trainable, f"train rest {dtype} step after the save, resumed")
+        finally:
+            torch.backends.cudnn.deterministic = False
+        diff = max((p - restored.params[n]).abs().max().item() for n, p in state.params.items())
+        stats = max((t.float() - restored.batch_stats[n].float()).abs().max().item()
+                    for n, t in state.batch_stats.items())
+        moments = max((state.opt_state.mu[n] - restored.opt_state.mu[n]).abs().max().item()
+                      for n in state.opt_state.mu)
+        print(f"train rest {dtype} resume after {RESUME_STEPS} steps: the next step's loss "
+              f"{went_on['loss']:.6f} / {resumed['loss']:.6f}, largest difference: parameters "
+              f"{diff:.3e}, buffers {stats:.3e}, first moments {moments:.3e}, layers run "
+              f"{runs} / {fresh_runs}")
+        rep["resume_max_param_diff"] = diff
+        if diff != 0.0 or stats != 0.0 or moments != 0.0 or went_on["loss"] != resumed["loss"]:
+            raise AssertionError(f"train rest {dtype}: the resumed run is not bit-identical")
+        del fresh, restored
+        torch.cuda.empty_cache()
+
+        # Step time and peak memory, accum 1 against accum 2: the same model
+        # and optimizer state, only `grad_accum` turned, in turns.
+        timing = {1: [], 2: []}
+        memory = {1: [], 2: []}
+        order = (1, 2, 2, 1, 1, 2, 2, 1)
+        for i, accum in enumerate((1, 2) + order):
+            trainer.tc = dataclasses.replace(trainer.tc, grad_accum=accum)
+            mask, lrs = trainer.trainable_mask(2), trainer.lr_tree(2, {})
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            trainer.run_epoch(state, [batches[i % len(batches)]], True, mask, lrs)
+            torch.cuda.synchronize()
+            if i >= 2:  # after one warm-up step each
+                timing[accum].append((time.perf_counter() - t0) * 1e3)
+                memory[accum].append((torch.cuda.max_memory_allocated() / 2**20,
+                                      (torch.cuda.max_memory_allocated() - base) / 2**20))
+        trainer.tc = dataclasses.replace(trainer.tc, grad_accum=2)
+        for accum in (1, 2):
+            rep[f"accum{accum}_step_ms"] = float(np.median(timing[accum]))
+            rep[f"accum{accum}_step_ms_all"] = timing[accum]
+            rep[f"accum{accum}_peak_mib"] = max(m[0] for m in memory[accum])
+            rep[f"accum{accum}_step_peak_above_start_mib"] = max(m[1] for m in memory[accum])
+        print(f"train rest {dtype} stage 2, batch {TRAIN_BATCH}: accum 1 step "
+              f"{rep['accum1_step_ms']:.1f} ms (median of {len(timing[1])}), peak "
+              f"{rep['accum1_peak_mib']:.0f} MiB ({rep['accum1_step_peak_above_start_mib']:.0f} above "
+              f"the step's start); accum 2 step {rep['accum2_step_ms']:.1f} ms, peak "
+              f"{rep['accum2_peak_mib']:.0f} MiB ({rep['accum2_step_peak_above_start_mib']:.0f} "
+              f"above the step's start) [{card}]")
+        del trainer, state
+        torch.cuda.empty_cache()
+
+        # Duplicated microbatch: accum 2 on [m, m] against accum 1 on m, every
+        # stochastic op of the train forward off, gradients before the optimizer.
+        quiet = dict(flagship, xattn_attn_dropout=0.0, xattn_stochastic_depth=0.0,
+                     temporal_dropout=0.0, wavlm_geometry=WAVLM_NO_NOISE)
+        trainer, state = make(quiet)
+        runs = _record_layers_run(state.model)
+        one = _train_batches(1, SEED + 11, augment=False)[0]
+        m = TRAIN_BATCH // 2
+        to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+        single = [to_dev(x[:m]) for x in (one.video, one.audio, one.labels, one.valid)]
+        double = [torch.cat([x, x]) for x in single]
+        identity = lambda x, rate, generator: x  # noqa: E731
+        saved = fusion.dropout, temporal.dropout
+        fusion.dropout = temporal.dropout = identity  # the head MLP's constant 0.2
+        try:
+            mask = trainer.trainable_mask(2)
+            trainer.loss_and_grads(state, *single, mask)  # cuDNN's algorithm choice
+            grads, losses = {}, {}
+            for accum, inputs in ((1, single), (2, double)):
+                trainer.tc = dataclasses.replace(trainer.tc, grad_accum=accum)
+                runs.clear()
+                seen = {name: fn.launches for name, fn in counters.items()}
+                total, *_ = trainer.loss_and_grads(state, *inputs, mask)
+                got = {name: fn.launches - seen[name] for name, fn in counters.items()}
+                want = {"wavlm_attention_sublayer": 12 * accum, "fused_conv_layer": 6 * accum,
+                        "wavlm_attention_sublayer_backward": 2 * accum}
+                if got != want:
+                    raise AssertionError(f"duplicated microbatch accum {accum}: launches {got}")
+                losses[accum] = float(total)
+                grads[accum] = {n: p.grad.detach().clone() for n, p in state.params.items()
+                                if p.grad is not None}
+        finally:
+            fusion.dropout, temporal.dropout = saved
+        if set(grads[1]) != set(grads[2]) or not grads[1]:
+            raise AssertionError("duplicated microbatch: the two steps have other trainable sets")
+        worst = max((grads[2][n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                    for n, g in grads[1].items())
+        exact = sum(torch.equal(grads[2][n], g) for n, g in grads[1].items())
+        rep["accum_dup_grad_rel_err"] = worst
+        print(f"train rest {dtype} duplicated microbatch (m = {m} clips): loss accum 1 "
+              f"{losses[1]:.6f}, accum 2 on [m, m] {losses[2]:.6f}; {len(grads[1])} gradients, "
+              f"{exact} bit-equal, worst {worst:.3e} of the gradient's largest entry "
+              f"(tol {ACCUM_GRAD_TOL[dtype]})")
+        if not worst <= ACCUM_GRAD_TOL[dtype] or abs(losses[1] - losses[2]) > 1e-5:
+            raise AssertionError(f"train rest {dtype}: accumulated gradients disagree: {worst}")
+        del trainer, state
+        torch.cuda.empty_cache()
+
+        # The CLIP alignment loss, gated + WavLM, grad_accum=2, counters from 0.
+        trainer, state = make(dict(fusion="gated", use_wavlm=True, fusion_align_mode="clip"),
+                              grad_accum=2)
+        runs = _record_layers_run(state.model)
+        trainer.run_epoch(state, batches[-1:], False)
+        for fn in counters.values():
+            fn.launches = 0
+        align = [_accum_step(trainer, state, batch, counters, runs, trainable,
+                             f"train rest {dtype} gated clip accum 2 step {i}",
+                             reset=i == 0)["contrastive_loss"]
+                 for i, batch in enumerate(batches[:3])]
+        for name, fn in counters.items():
+            launches[name] += fn.launches
+        rep["alignment_losses"] = align
+        # bfloat16 rounds the loss to 8 bits of mantissa: two steps may read
+        # the same value, three must not.
+        if not (np.isfinite(align).all() and min(align) > 0.0 and len(set(align)) > 1):
+            raise AssertionError(f"train rest {dtype}: alignment losses {align}")
+        del trainer, state
+        torch.cuda.empty_cache()
+
+        # Warm start from raw torchvision / HF layouts through convert/pretrained.py.
+        raw_video, raw_audio = raw
+        ckpts = {}
+        for arch, state_dict in (("resnet18", raw_video), ("wavlm-base", raw_audio)):
+            torch.save(state_dict, Path(tmp) / f"raw_{arch}.pth")
+            ckpts[arch] = str(convert_pretrained(arch, Path(tmp) / f"raw_{arch}.pth",
+                                                 Path(tmp) / f"branch_{arch}_{dtype}.pt"))
+        trainer, state = make(flagship, audio_ckpt=ckpts["wavlm-base"], video_ckpt=ckpts["resnet18"])
+        sd = state.model.state_dict()
+        children = {"conv1": "0", "bn1": "1", "layer1": "4", "layer2": "5", "layer3": "6",
+                    "layer4": "7"}
+        checked = 0
+        for key, want in raw_video.items():
+            if key.startswith("fc."):
+                continue
+            root, rest = key.split(".", 1)
+            if not torch.equal(sd[f"video_model.backbone.{children[root]}.{rest}"].cpu(), want):
+                raise AssertionError(f"warm start: video {key} differs from its source")
+            checked += 1
+        pos = "encoder.pos_conv_embed.conv"
+        for key, want in raw_audio.items():
+            if key.startswith(pos):
+                continue
+            if not torch.equal(sd[f"audio_model.wavlm.{key}"].cpu(), want):
+                raise AssertionError(f"warm start: audio {key} differs from its source")
+            checked += 1
+        g, v = raw_audio[pos + ".weight_g"].double(), raw_audio[pos + ".weight_v"].double()
+        merged = g * v / v.pow(2).sum(dim=(0, 1), keepdim=True).sqrt()
+        pos_err = (sd[f"audio_model.wavlm.{pos}.weight"].cpu().double() - merged).abs().max().item()
+        rep["warm_start"] = {"report": trainer.warm_start_report, "tensors_bit_equal": checked,
+                             "pos_conv_err": pos_err}
+        print(f"train rest {dtype} warm start: {checked} branch tensors bit-equal to their "
+              f"sources, the positional conv within {pos_err:.3e} of g * v / |v| (tol 1e-6); "
+              f"missing / unused keys per branch {trainer.warm_start_report}")
+        if pos_err > 1e-6 or set(trainer.warm_start_report) != {"audio_model", "video_model"}:
+            raise AssertionError(f"train rest {dtype}: warm start {rep['warm_start']}")
+        runs = _record_layers_run(state.model)
+        _accum_step(trainer, state, batches[0], counters, runs, trainable,
+                    f"train rest {dtype} warm-started flagship step", reset=True)
+        del trainer, state
+        torch.cuda.empty_cache()
+
+        # fit with a test loader: the confusion matrix against the eval predictions.
+        out_dir = Path(tmp) / f"fit_{dtype}"
+        trainer, state = make(flagship, epochs=1, grad_accum=2)
+        trainer.tc = dataclasses.replace(trainer.tc, output_dir=str(out_dir))
+        test = _train_batches(2, SEED + 13, augment=False)
+        test[1].valid[-3:] = False
+        state, result = trainer.fit(batches[:2], batches[2:3], test_loader=test, state=state)
+        cm = np.loadtxt(out_dir / "confusion_matrix.csv", delimiter=",", dtype=np.int64)
+        preds = [trainer.eval_step(state, *(to_dev(x) for x in (b.video, b.audio, b.labels, b.valid)))[3]
+                 .cpu().numpy()[b.valid] for b in test]
+        want = confusion_matrix(np.concatenate(preds),
+                                np.concatenate([b.labels[b.valid] for b in test]), 8)
+        n_valid = int(sum(b.valid.sum() for b in test))
+        rep["confusion_matrix"] = cm.tolist()
+        print(f"train rest {dtype} fit: confusion_matrix.csv sums to {cm.sum()} of {n_valid} valid "
+              f"test clips, equal to the eval predictions' {np.array_equal(cm, want)}, PNG "
+              f"{(out_dir / 'confusion_matrix.png').exists()}")
+        if (cm.shape != (8, 8) or cm.sum() != n_valid or not np.array_equal(cm, want)
+                or result.get("confusion_matrix") != cm.tolist()):
+            raise AssertionError(f"train rest {dtype}: confusion matrix {cm.tolist()}")
+        del trainer, state
+        torch.cuda.empty_cache()
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"train rest: launches of the main path's train steps {launches}; phase wall time "
+          f"{report['phase_s']:.1f} s [{card}]")
+    return launches, report
+
+
 def make_checkpoint(path):
     """The flagship at full width, random weights from the seed -> (config,
     uint8 video [8,8,3,112,112], int16 audio [8,1,48000])."""
@@ -1558,6 +1922,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         train_launches, train_report = train(dev, card, tmp)
         train_report["families"] = train_families(dev, card, tmp)
+        rest_launches, train_report["rest"] = train_rest(dev, card, tmp)
 
     csrc = "multimodalemotionrecognition_torch/kernels/csrc/"
     ops = "multimodalemotionrecognition_tpu/ops/"
@@ -1605,6 +1970,11 @@ def main() -> int:
         entry["launches_train"] = train_launches[entry["name"]]
         if entry["launches_train"] < 1:
             raise AssertionError(f"{entry['name']} was not launched on the training path")
+    # ... and the rest of the trainer's (phase 10: grad_accum=2, the alignment loss).
+    for entry in (kernels[0], kernels[1], kernels[4]):
+        entry["launches_train_rest"] = rest_launches[entry["name"]]
+        if entry["launches_train_rest"] < 1:
+            raise AssertionError(f"{entry['name']} was not launched on phase 10's path")
     kernels[0]["train_shapes"] = k1_train
     kernels[1]["train_shapes"] = {f"{name}_b16": rep for name, rep in k3_train.items()}
     kernels[4]["variants"] = k2

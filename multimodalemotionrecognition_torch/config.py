@@ -186,9 +186,6 @@ class TrainConfig:
     builds either trainer, and they have no effect here: PyTorch frees and
     reuses buffers itself, the port trains on one device, and its optimizer
     runs `torch._foreach_*` passes over the trainable leaves.
-    `grad_accum > 1`, `fusion_align_mode != "none"` and the branch warm
-    start (`audio_ckpt`, `video_ckpt`) are not ported yet: the trainer raises
-    `NotImplementedError` for them.
     """
 
     epochs: int = 20

@@ -55,6 +55,19 @@ class RngStreams:
         """One U[0, 1) draw on the host."""
         return float(torch.rand((), generator=self._host[name]))
 
+    def get_state(self) -> dict:
+        """Every generator's state (CPU byte tensors), for a resume file."""
+        return {"seed": self.seed,
+                "device": {k: g.get_state() for k, g in self._device.items()},
+                "host": {k: g.get_state() for k, g in self._host.items()}}
+
+    def set_state(self, state: dict) -> None:
+        """Restore what `get_state` returned: the draws go on where they stopped."""
+        self.seed = int(state["seed"])
+        for name in RNG_STREAMS:
+            self._device[name].set_state(state["device"][name])
+            self._host[name].set_state(state["host"][name])
+
     def kernel_seed(self, name: str = "dropout") -> int:
         """One int32 in [0, 2^31 - 1), drawn on the host, for a kernel's hash."""
         return int(torch.randint(0, 2**31 - 1, (), generator=self._host[name]))

@@ -28,18 +28,28 @@ per version of the parameter, and the loss is taken in float32.
 Every family of `build_model` trains: the single-modality models take their
 own input, the mel models get the log-mel spectrogram made on the device
 inside the step, late fusion's probabilities go through the NLL.  One
-deterministic step is held against the JAX trainer for the flagship and for
-the mel families (gated, late, concat, audio, video, cross-attention); the
-WavLM branch under the other fusions and the transformer pooler train
-without such a check yet.
+deterministic step is held against the JAX trainer for every family.
 
 The WavLM encoder layers run the hand-written attention kernel in the train
 step too (forward with its in-kernel dropouts, and its backward kernel for
 trainable layers), and the frozen conv feature extractor runs the conv
 kernel; see `kernels/wavlm_attn.py`, `kernels/conv_fe.py`.
 
-Not ported yet (each raises or is absent): `grad_accum > 1`, the alignment
-loss, the branch warm start, resume checkpoints, the confusion matrix.
+As in the JAX trainer: the CLIP alignment term (`fusion_align_mode="clip"`,
+total = cls + fusion_align_weight * InfoNCE); gradient accumulation
+(`grad_accum` equal microbatches, one forward and backward each so `.grad`
+sums them, each classification loss normalised by the full batch's valid
+count, ONE optimizer step; BatchNorm statistics chain from microbatch to
+microbatch and InfoNCE sees each microbatch's negatives, combined as the
+mean); the branch warm start from `audio_ckpt` / `video_ckpt`
+(`convert/pretrained.py` makes them from raw torchvision / HF state dicts);
+the test confusion matrix (`confusion_matrix.csv`, and a PNG when matplotlib
+imports); resume checkpoints (`save_resume_state` / `restore_resume_state`:
+one `torch.save` file where the JAX trainer writes an orbax tree).
+
+Not ported yet: W&B logging (`TrainConfig.wandb`), the CLI and the data
+pipeline that feeds `fit` (ROADMAP queue 1, "`data/`" and "`train/eval.py`,
+`train/cli.py`").
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import time
+import warnings
 from pathlib import Path
 from typing import Any, Dict, Iterable, Optional, Tuple
 
@@ -59,6 +70,11 @@ from multimodalemotionrecognition_torch.config import (
     IMAGENET_STD,
     ModelConfig,
     TrainConfig,
+    labels_for,
+)
+from multimodalemotionrecognition_torch.convert.checkpoint import (
+    load_reference_checkpoint,
+    normalize_torch_state_dict,
 )
 from multimodalemotionrecognition_torch.models.factory import build_model
 from multimodalemotionrecognition_torch.ops.mel import log_mel_spectrogram
@@ -70,7 +86,11 @@ from multimodalemotionrecognition_torch.train.freeze import (
     wavlm_frozen_prefix,
 )
 from multimodalemotionrecognition_torch.utils.device import require_device
-from multimodalemotionrecognition_torch.utils.metrics import accuracy, macro_f1
+from multimodalemotionrecognition_torch.utils.metrics import (
+    accuracy,
+    confusion_matrix,
+    macro_f1,
+)
 from multimodalemotionrecognition_torch.utils.seed import set_seed
 
 __all__ = ["AdamState", "EmotionTrainer", "TrainState", "masked_adam_update"]
@@ -218,6 +238,7 @@ class EmotionTrainer:
         self.metrics_log: list = []
         self._cast_cache: Dict[str, Tuple[int, torch.Tensor]] = {}
         self._active_mask: Optional[Dict[str, bool]] = None
+        self.warm_start_report: Dict[str, Tuple[int, int]] = {}
         self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self._mean = torch.tensor(IMAGENET_MEAN, device=self.device).view(1, 1, 3, 1, 1)
         self._std = torch.tensor(IMAGENET_STD, device=self.device).view(1, 1, 3, 1, 1)
@@ -227,8 +248,7 @@ class EmotionTrainer:
     # ------------------------------------------------------------------
 
     def _validate_train_config(self) -> None:
-        """Fail fast on mode-string typos, as the JAX trainer does, and on
-        what is not ported yet."""
+        """Fail fast on mode-string typos, as the JAX trainer does."""
         tc = self.tc
         if tc.flat_optimizer not in ("auto", "on", "off"):
             raise ValueError(
@@ -244,17 +264,12 @@ class EmotionTrainer:
             )
         if not isinstance(tc.grad_accum, int) or tc.grad_accum < 1:
             raise ValueError(f"TrainConfig.grad_accum must be an int >= 1; got {tc.grad_accum!r}")
-        if tc.grad_accum > 1:
-            raise NotImplementedError("TrainConfig.grad_accum > 1 is not ported yet (ROADMAP queue 1, item 9)")
-        if self.mc.fusion_align_mode != "none":
-            raise NotImplementedError(
-                "ModelConfig.fusion_align_mode != 'none' (the alignment loss) is not ported yet "
-                "(ROADMAP queue 1, item 9)"
-            )
-        if tc.audio_ckpt or tc.video_ckpt:
-            raise NotImplementedError(
-                "the branch warm start (audio_ckpt, video_ckpt) is not ported yet "
-                "(ROADMAP queue 1, item 9)"
+        if tc.grad_accum > 1 and self.mc.fusion_align_mode != "none":
+            warnings.warn(
+                f"grad_accum={tc.grad_accum} with fusion_align_mode={self.mc.fusion_align_mode!r}: "
+                "the alignment loss sees each microbatch's negatives only (combined as the mean "
+                "over microbatches), and BatchNorm statistics update once per microbatch",
+                stacklevel=3,
             )
 
     def _stages(self) -> Tuple[int, ...]:
@@ -276,9 +291,15 @@ class EmotionTrainer:
 
     def init_state(self, generator: Optional[torch.Generator] = None) -> TrainState:
         """Build the model on the device with parameters drawn from
-        `generator` (default: seeded with `TrainConfig.seed`), zero moments
-        for every parameter trainable in some stage of the run, and the
-        step's random streams from the same seed."""
+        `generator` (default: seeded with `TrainConfig.seed`), warm-start
+        its branches from `audio_ckpt` / `video_ckpt`, zero moments for every
+        parameter trainable in some stage of the run, and the step's random
+        streams from the same seed."""
+        state = self._fresh_state(generator)
+        self.warm_start_report = self._warm_start()
+        return state
+
+    def _fresh_state(self, generator: Optional[torch.Generator] = None) -> TrainState:
         generator = generator or torch.Generator().manual_seed(self.tc.seed)
         self.model = build_model(self.mc, device=self.device, generator=generator)
         self._cast_cache.clear()
@@ -292,6 +313,33 @@ class EmotionTrainer:
             opt_state=AdamState.zeros(live),
             rng=RngStreams(self.tc.seed, self.device),
         )
+
+    def _warm_start(self) -> Dict[str, Tuple[int, int]]:
+        """Branch checkpoint warm start (reference `src/train.py:913-947`):
+        standalone audio / video checkpoints load into the fusion model's
+        branches, parameters and BatchNorm statistics, tolerating missing
+        and extra keys like `load_state_dict(strict=False)`.  Single-modality
+        models skip it, as in the JAX trainer.  -> {branch: (missing,
+        unused)} key counts, as the JAX trainer reports them (BatchNorm's
+        `num_batches_tracked` counted on neither side)."""
+        report: Dict[str, Tuple[int, int]] = {}
+        if self.is_single_modality:
+            return report
+        for attr, branch in (("audio_ckpt", "audio_model"), ("video_ckpt", "video_model")):
+            path = getattr(self.tc, attr)
+            if not path:
+                continue
+            sd, _ = load_reference_checkpoint(path)
+            result = getattr(self.model, branch).load_state_dict(
+                normalize_torch_state_dict(sd), strict=False
+            )
+            counted = lambda keys: sum(not k.endswith("num_batches_tracked") for k in keys)  # noqa: E731
+            report[branch] = (counted(result.missing_keys), counted(result.unexpected_keys))
+            print(
+                f"[INFO] Loaded {branch} checkpoint: {path} "
+                f"(missing={report[branch][0]}, unused={report[branch][1]})"
+            )
+        return report
 
     # ------------------------------------------------------------------
     # model application
@@ -327,14 +375,20 @@ class EmotionTrainer:
             out[name] = cached[1]
         return out
 
-    def _apply(self, video, audio, train: bool, rng: Optional[RngStreams]) -> torch.Tensor:
-        """-> the model's output in float32 (logits; probabilities for late
-        fusion).  The single-modality models take their own input alone."""
+    def _apply(self, video, audio, train: bool, rng: Optional[RngStreams]):
+        """-> (the model's output in float32: logits, probabilities for late
+        fusion; aux with the alignment loss, None where the model has none).
+        The single-modality models take their own input alone."""
         inputs = {"audio": (audio,), "video": (video,)}.get(self.mc.fusion, (video, audio))
+        kwargs = {} if self.is_single_modality else {"return_aux": True}
         if self.dtype == torch.float32:
-            return self.model(*inputs, train, rng)
-        args = (*(x.to(self.dtype) for x in inputs), train, rng)
-        return torch.func.functional_call(self.model, self._cast_params(), args).float()
+            out = self.model(*inputs, train, rng, **kwargs)
+        else:
+            args = (*(x.to(self.dtype) for x in inputs), train, rng)
+            out = torch.func.functional_call(self.model, self._cast_params(), args, kwargs)
+        out, aux = out if kwargs else (out, {"alignment_loss": None})
+        align = aux["alignment_loss"]
+        return out.float(), {"alignment_loss": None if align is None else align.float()}
 
     def _audio_features(self, audio_wav: torch.Tensor) -> torch.Tensor:
         """Waveform [B, 1, T] -> the model's audio input: WavLM takes it as
@@ -362,7 +416,11 @@ class EmotionTrainer:
             v = v.clamp(0.0, 1.0)
         return (v - self._mean) / self._std
 
-    def _losses(self, outputs, labels, valid):
+    def _losses(self, outputs, aux, labels, valid, denom=None):
+        """-> (total, cls_loss, contrastive).  `denom` overrides the
+        valid-count normaliser: gradient accumulation passes the FULL
+        batch's count, so the microbatches' contributions sum to the full
+        batch's classification loss and gradient."""
         labels = labels.long()
         if self.mc.fusion == "late":
             per_sample = _nll_on_probs(outputs, labels)
@@ -371,9 +429,16 @@ class EmotionTrainer:
                 outputs, labels, max(0.0, self.tc.label_smoothing)
             )
         weight = valid.to(per_sample.dtype)
-        cls_loss = (per_sample * weight).sum() / weight.sum().clamp_min(1.0)
-        contrastive = torch.zeros_like(cls_loss)  # the alignment loss is not ported
-        return cls_loss, cls_loss, contrastive
+        if denom is None:
+            denom = weight.sum().clamp_min(1.0)
+        cls_loss = (per_sample * weight).sum() / denom
+        align = aux.get("alignment_loss")
+        contrastive = align if align is not None else torch.zeros_like(cls_loss)
+        total = cls_loss + self._align_weight() * contrastive
+        return total, cls_loss, contrastive
+
+    def _align_weight(self) -> float:
+        return self.mc.fusion_align_weight if self.mc.fusion_align_mode != "none" else 0.0
 
     # ------------------------------------------------------------------
     # steps
@@ -382,14 +447,41 @@ class EmotionTrainer:
     def loss_and_grads(self, state: TrainState, video, audio_wav, labels, valid, mask, aug=None):
         """Train-mode forward and backward: leaves the gradients on the
         trainable parameters' `.grad` and updates the BatchNorm statistics
-        in place.  -> (total, cls_loss, contrastive, preds), on the device."""
+        in place.  -> (total, cls_loss, contrastive, preds) over the whole
+        batch, on the device.
+
+        With `grad_accum` = n > 1 the batch is cut into n equal microbatches
+        (JAX `trainer.py:490-584`), each run forward and backward in turn so
+        only one microbatch's activations are live and `.grad` sums their
+        gradients: each classification loss is normalised by the FULL
+        batch's valid count, the alignment term enters as weight * loss / n,
+        BatchNorm statistics chain from microbatch to microbatch, and each
+        microbatch draws its own dropout masks from the step's streams."""
+        accum = self.tc.grad_accum
+        bsz = video.shape[0]
+        if bsz % accum:
+            raise ValueError(f"batch size {bsz} not divisible by grad_accum {accum}")
         self._set_trainable(mask)
         self.model.zero_grad(set_to_none=True)
-        video = self._device_video(video, aug, state.rng.device("videoaug"))
-        outputs = self._apply(video, self._audio_features(audio_wav), True, state.rng)
-        total, cls_loss, contrastive = self._losses(outputs, labels, valid)
-        total.backward()
-        return total.detach(), cls_loss.detach(), contrastive.detach(), outputs.argmax(dim=1)
+        mb = bsz // accum
+        denom = valid.float().sum().clamp_min(1.0)
+        a_w = self._align_weight()
+        cls_loss = contrastive = None
+        preds = []
+        for i in range(accum):
+            rows = slice(i * mb, (i + 1) * mb)
+            mv = self._device_video(
+                video[rows], None if aug is None else aug[rows], state.rng.device("videoaug")
+            )
+            out, aux = self._apply(mv, self._audio_features(audio_wav[rows]), True, state.rng)
+            _, cls_i, ctr_i = self._losses(out, aux, labels[rows], valid[rows], denom)
+            (cls_i + a_w * ctr_i / accum).backward()
+            cls_i, ctr_i = cls_i.detach(), ctr_i.detach() / accum
+            cls_loss = cls_i if cls_loss is None else cls_loss + cls_i
+            contrastive = ctr_i if contrastive is None else contrastive + ctr_i
+            preds.append(out.detach().argmax(dim=1))
+        total = cls_loss + a_w * contrastive
+        return total, cls_loss, contrastive, torch.cat(preds)
 
     def train_step(
         self, state: TrainState, video, audio_wav, labels, valid, mask, lrs,
@@ -410,8 +502,8 @@ class EmotionTrainer:
     @torch.no_grad()
     def eval_step(self, state: TrainState, video, audio_wav, labels, valid, aug=None):
         video = self._device_video(video, aug, None)
-        outputs = self._apply(video, self._audio_features(audio_wav), False, None)
-        total, cls_loss, contrastive = self._losses(outputs, labels, valid)
+        outputs, aux = self._apply(video, self._audio_features(audio_wav), False, None)
+        total, cls_loss, contrastive = self._losses(outputs, aux, labels, valid)
         return total, cls_loss, contrastive, outputs.argmax(dim=1)
 
     # ------------------------------------------------------------------
@@ -619,15 +711,108 @@ class EmotionTrainer:
             print(
                 f"Test | loss {test_m['loss']:.4f} acc {test_m['acc']:.4f} f1 {test_m['f1']:.4f}"
             )
+            # Test confusion matrix (the reference plots it to W&B,
+            # `src/train.py:304-326,1186-1197`): saved as CSV, and PNG.
+            try:
+                cm = self._test_confusion_matrix(state, test_loader)
+                self._save_confusion_matrix(cm, out_dir)
+                result["confusion_matrix"] = cm.tolist()
+            except Exception as exc:  # plotting must never kill a run
+                print(f"[WARNING] confusion matrix failed: {exc}")
         out_dir.mkdir(parents=True, exist_ok=True)
         with (out_dir / "metrics.jsonl").open("w") as f:
             for row in history:
                 f.write(json.dumps(row) + "\n")
         return state, result
 
+    def _test_confusion_matrix(self, state: TrainState, loader) -> np.ndarray:
+        """Eval predictions over `loader` -> [num_classes, num_classes]
+        counts, rows the true class, valid samples only."""
+        preds, labels = [], []
+        for batch in loader:
+            sb, event = self._stage_batch(batch)
+            if event is not None:
+                torch.cuda.current_stream(self.device).wait_event(event)
+                for t in sb.values():
+                    t.record_stream(torch.cuda.current_stream(self.device))
+            *_, p = self.eval_step(state, sb["video"], sb["audio"], sb["labels"], sb["valid"])
+            valid_np = np.asarray(batch.valid)
+            preds.append(p.cpu().numpy()[valid_np])
+            labels.append(np.asarray(batch.labels)[valid_np])
+        return confusion_matrix(
+            np.concatenate(preds), np.concatenate(labels), self.mc.num_classes
+        )
+
+    def _save_confusion_matrix(self, cm: np.ndarray, out_dir: Path) -> None:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        np.savetxt(out_dir / "confusion_matrix.csv", cm, fmt="%d", delimiter=",")
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except ImportError:
+            return
+        labels = list(labels_for(self.mc.num_classes))
+        fig, ax = plt.subplots(figsize=(8, 8))
+        im = ax.imshow(cm, cmap="Blues")
+        ax.set_xlabel("Predicted")
+        ax.set_ylabel("True")
+        ax.set_xticks(range(len(labels)), labels, rotation=45, ha="right")
+        ax.set_yticks(range(len(labels)), labels)
+        for i in range(cm.shape[0]):
+            for j in range(cm.shape[1]):
+                ax.text(
+                    j, i, int(cm[i, j]), ha="center", va="center",
+                    color="w" if cm[i, j] > cm.max() / 2 else "black",
+                )
+        fig.colorbar(im, ax=ax)
+        fig.tight_layout()
+        fig.savefig(out_dir / "confusion_matrix.png", dpi=120)
+        plt.close(fig)
+
     # ------------------------------------------------------------------
     # checkpoints
     # ------------------------------------------------------------------
+
+    def save_resume_state(
+        self, directory: Path | str, state: TrainState, epoch: int, best_f1: float
+    ) -> None:
+        """Everything a run needs to go on where it stopped, as one
+        `torch.save` file `directory/resume.pt` (the JAX trainer writes an
+        orbax tree): the model's parameters and buffers, the Adam count and
+        moments, the state of every generator of `RngStreams` (device and
+        host), step, epoch and best F1."""
+        directory = Path(directory)
+        directory.mkdir(parents=True, exist_ok=True)
+        cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}  # noqa: E731
+        payload = {
+            "model": cpu(state.model.state_dict()),
+            "opt_state": {"count": state.opt_state.count, "mu": cpu(state.opt_state.mu),
+                          "nu": cpu(state.opt_state.nu)},
+            "rng": state.rng.get_state(),
+            "step": int(state.step),
+            "epoch": int(epoch),
+            "best_f1": float(best_f1),
+        }
+        torch.save(payload, directory / "resume.pt")
+
+    def restore_resume_state(self, directory: Path | str) -> Tuple[TrainState, int, float]:
+        """-> (TrainState, epoch, best_f1) from `save_resume_state`'s file,
+        on a model built anew (no warm start: the file has every tensor)."""
+        payload = torch.load(Path(directory) / "resume.pt", map_location="cpu", weights_only=False)
+        state = self._fresh_state()
+        state.model.load_state_dict(payload["model"], strict=True)
+        opt = payload["opt_state"]
+        if set(opt["mu"]) != set(state.opt_state.mu):
+            raise ValueError("the resume file's optimizer state is for another set of parameters")
+        state.opt_state.count = int(opt["count"])
+        for name in state.opt_state.mu:
+            state.opt_state.mu[name].copy_(opt["mu"][name])
+            state.opt_state.nu[name].copy_(opt["nu"][name])
+        state.rng.set_state(payload["rng"])
+        state.step = int(payload["step"])
+        return state, int(payload["epoch"]), float(payload["best_f1"])
 
     def save_checkpoint(self, path: Path | str, state: TrainState, val_f1: float) -> None:
         """Reference-format .pt: {"model": state_dict, "val_f1", "config"}

@@ -2,14 +2,15 @@
 
 The port's own copy of the JAX package's `utils/metrics.py`: accuracy and
 macro-F1 with sklearn's conventions (classes present in either targets or
-predictions; a class's F1 is 0 when its denominator is 0).
+predictions; a class's F1 is 0 when its denominator is 0), and the confusion
+matrix.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["accuracy", "macro_f1"]
+__all__ = ["accuracy", "confusion_matrix", "macro_f1"]
 
 
 def accuracy(preds, targets) -> float:
@@ -40,3 +41,13 @@ def macro_f1(preds, targets, num_classes: int | None = None) -> float:
         denom = 2 * tp + fp + fn
         f1s.append(0.0 if denom == 0 else 2 * tp / denom)
     return float(np.mean(f1s)) if f1s else 0.0
+
+
+def confusion_matrix(preds, targets, num_classes: int) -> np.ndarray:
+    """[num_classes, num_classes] int64 counts: row the target, column the
+    prediction."""
+    preds = np.asarray(preds).astype(np.int64)
+    targets = np.asarray(targets).astype(np.int64)
+    cm = np.zeros((num_classes, num_classes), dtype=np.int64)
+    np.add.at(cm, (targets, preds), 1)
+    return cm

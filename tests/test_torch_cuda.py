@@ -851,3 +851,85 @@ def test_xattn_kernel_matches_plain(cuda, b, ta, with_bias):
     for x, y in zip(got, want):
         assert x.shape == (b, 128)
         assert (x - y).abs().max().item() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the trainer's gradient accumulation and warm start, through the kernels
+# ---------------------------------------------------------------------------
+
+
+def _flagship_trainer(cuda, dtype, tmp_path, **train_kw):
+    from multimodalemotionrecognition_torch.config import ModelConfig, TrainConfig
+    from multimodalemotionrecognition_torch.train import EmotionTrainer
+
+    trainer = EmotionTrainer(
+        ModelConfig(fusion="xattn", use_wavlm=True, compute_dtype=dtype),
+        TrainConfig(two_stage_training=True, output_dir=str(tmp_path), **train_kw), device=cuda,
+    )
+    state = trainer.init_state()
+    runs = []  # WavLM's layers_run after each forward: one entry per microbatch
+    state.model.audio_model.wavlm.register_forward_hook(
+        lambda m, i, o: runs.append(list(m.layers_run)))
+    return trainer, state, runs
+
+
+def _flagship_batch(cuda, b, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randint(0, 256, (b, 8, 3, 112, 112), generator=g, dtype=torch.uint8).to(cuda),
+            (torch.randn(b, 1, 48000, generator=g) * 0.1).to(cuda),
+            torch.randint(0, 8, (b,), generator=g).to(cuda), torch.ones(b, dtype=torch.bool).to(cuda))
+
+
+def _stage2_step_launches(trainer, state, runs, batch):
+    counters = (wavlm_attention_sublayer, fused_conv_layer, wavlm_attention_sublayer_backward)
+    before = [fn.launches for fn in counters]
+    runs.clear()
+    total, *_ = trainer.train_step(state, *batch, trainer.trainable_mask(2), trainer.lr_tree(2, {}))
+    torch.cuda.synchronize()
+    assert torch.isfinite(total)
+    got = [fn.launches - n for fn, n in zip(counters, before)]
+    want = [sum(len(r) for r in runs), 6 * len(runs), sum(len({10, 11} & set(r)) for r in runs)]
+    return got, want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_trainer_grad_accum_step_launches_the_kernels_per_microbatch(cuda, dtype, tmp_path):
+    """A grad_accum=2 stage-2 step of the full-width flagship: per microbatch
+    12 K1 less the LayerDrop skips, 6 K3, one K2 per trainable layer that ran;
+    one optimizer step."""
+    trainer, state, runs = _flagship_trainer(cuda, dtype, tmp_path, grad_accum=2)
+    got, want = _stage2_step_launches(trainer, state, runs, _flagship_batch(cuda, 4))
+    assert len(runs) == 2 and got == want, (got, want, runs)
+    assert state.opt_state.count == 1 and state.step == 1
+
+
+def test_trainer_warm_start_then_step(cuda, tmp_path):
+    """Branch checkpoints written by `convert/pretrained.py` from torchvision-
+    and HF-layout dicts (the positional conv as weight-norm g and v) land in
+    the branches; then a stage-2 step through the kernels."""
+    from multimodalemotionrecognition_torch.convert.pretrained import convert_pretrained
+
+    source, _, _ = _flagship_trainer(cuda, "float32", tmp_path, seed=1)
+    names = {"0": "conv1", "1": "bn1", "4": "layer1", "5": "layer2", "6": "layer3", "7": "layer4"}
+    video = {f"{names[k.split('.')[1]]}.{k.split('.', 2)[2]}": v.cpu()
+             for k, v in source.model.video_model.state_dict().items()}
+    video["fc.weight"], video["fc.bias"] = torch.zeros(1000, 512), torch.zeros(1000)
+    audio = {k.removeprefix("wavlm."): v.cpu() for k, v in source.model.audio_model.state_dict().items()}
+    pos = "encoder.pos_conv_embed.conv"
+    w = audio.pop(pos + ".weight")
+    norm = w.double().pow(2).sum(dim=(0, 1), keepdim=True).sqrt().float()
+    audio[pos + ".weight_g"], audio[pos + ".weight_v"] = norm, w.clone()  # g * v / |v| = w
+    for arch, raw in (("resnet18", video), ("wavlm-base", audio)):
+        torch.save(raw, tmp_path / f"{arch}.pth")
+        convert_pretrained(arch, tmp_path / f"{arch}.pth", tmp_path / f"{arch}.pt")
+    trainer, state, runs = _flagship_trainer(
+        cuda, "float32", tmp_path, seed=2, audio_ckpt=str(tmp_path / "wavlm-base.pt"),
+        video_ckpt=str(tmp_path / "resnet18.pt"))
+    assert trainer.warm_start_report == {"audio_model": (0, 0), "video_model": (0, 0)}
+    want = source.model.state_dict()
+    for key, value in state.model.state_dict().items():
+        if key.startswith(("audio_model.", "video_model.")):
+            tol = 1e-6 if key.endswith(pos + ".weight") else 0.0
+            assert (value - want[key]).abs().max().item() <= tol, key
+    got, want = _stage2_step_launches(trainer, state, runs, _flagship_batch(cuda, 2, seed=1))
+    assert got == want, (got, want, runs)
