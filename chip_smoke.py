@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port: build, check and time its kernels,
-serve the flagship model at full width through `TorchModelRunner`, run the
+serve the flagship model at full width through `TorchModelRunner` and the
+serving stack (dynamic batcher, HTTP apps, WebSocket streaming), run the
 measurement entry points, serve the other model families, and train the
 flagship through `EmotionTrainer` (with gradient accumulation, the alignment
 loss, the branch warm start, resume and the test confusion matrix).
@@ -51,6 +52,29 @@ Phases (the first failure ends the run with a non-zero exit code):
                `(quantize_int8=True)` and both, bf16 and f32: fused against
                modular, int8 + fused against int8, int8 against float; 1 K4,
                12 K1 and 6 K3 launches per fused forward.
+  5a. serve-stack - the serving stack on the same checkpoint.  Part a
+               (stdlib, numpy, scipy, torch): a burst of 24 .wav uploads
+               (scipy-written seeded noise: 3 s at 16 kHz, 2 s at 48 kHz,
+               4 s at 22.05 kHz) through `InferenceGateway` +
+               `DynamicBatcher` over `TorchModelRunner` (ServeConfig's
+               defaults: batches of up to 8, 20 ms, buckets 1, 2, 4, 8, the
+               int16 wire, the blank-video route) in float32, in bfloat16
+               and with `fused_xattn` (float32), each after an untimed burst
+               of 8: every result against
+               `predict_probs_blank_video` on the same preprocessed audio
+               called directly (the serve tolerances, the same argmax), the
+               result keys, at least one batch of more than one request
+               (StageTimer's batch sizes), exactly 12 K1 + 6 K3 (+ 1 K4
+               fused) launches per batch forward; clips/s through the
+               batcher, queue_delay_ms median and largest, StageTimer's
+               preprocess and infer ms; `EmotionPredictor.predict` on a .wav
+               file; the host time of entering and leaving the runner's
+               stream (what each request of the existing paths gained).
+               Part b (aiohttp, cv2): the direct and the queued app
+               on 127.0.0.1 through AppRunner + TCPSite with the real
+               runner: GET /health ("gpu"), POST /predict of a .wav,
+               /queue/status and /metrics, one /ws/stream session (JPEG
+               frames, PCM16 audio) until a prediction comes back.
   6. blocks  - K5's and K4's public entries on the served model's own
                tokens, against the modular fusion modules they stand for, with
                the modules' device and host times beside K4's.
@@ -1853,6 +1877,276 @@ def serve_families(dev, card, tmp, video, audio, iters: int = 5):
     return launches, perf
 
 
+# --------------------------------------------------------------------------- phase 5a: serve-stack
+
+STACK_REQUESTS = 24  # .wav uploads per burst
+RESULT_KEYS = {"task_id", "worker_name", "labels", "probs", "top1", "queue_delay_ms", "processed_at"}
+
+
+def _wav_uploads(n: int, seed: int):
+    """.wav uploads of seeded noise, written by scipy: 3 s at 16 kHz, 2 s at
+    48 kHz (resampled, then zero-padded) and 4 s at 22.05 kHz (resampled,
+    then head-cropped), in turn."""
+    import io
+
+    from scipy.io import wavfile
+
+    rng = np.random.RandomState(seed)
+    uploads = []
+    for i in range(n):
+        sr, seconds = ((16000, 3.0), (48000, 2.0), (22050, 4.0))[i % 3]
+        pcm = np.clip(rng.randn(int(sr * seconds)) * 4000, -32768, 32767).astype(np.int16)
+        buf = io.BytesIO()
+        wavfile.write(buf, sr, pcm)
+        uploads.append((f"clip{i}_{sr}.wav", buf.getvalue()))
+    return uploads
+
+
+def _burst(runner, uploads, config):
+    """All uploads submitted at once to `InferenceGateway` + `DynamicBatcher`
+    over `runner` -> (results in submission order, the batcher's StageTimer,
+    wall seconds from the first submit to the last result)."""
+    import asyncio
+
+    from multimodalemotionrecognition_torch.serving.batcher import DynamicBatcher, InferenceGateway
+
+    async def scenario():
+        gateway = InferenceGateway(config)
+        batcher = DynamicBatcher(gateway, runner, config)
+        task = asyncio.create_task(batcher.run())
+        t0 = time.perf_counter()
+        ids = await gateway.submit_many(uploads)
+        results = await asyncio.gather(*(gateway.wait_for_result(t) for t in ids))
+        wall = time.perf_counter() - t0
+        batcher.stop()
+        await task
+        return list(results), batcher.timer, wall
+
+    return asyncio.run(scenario())
+
+
+def _direct_blank_video(runner, uploads):
+    """Each upload's preprocessed audio through `predict_probs_blank_video`, alone."""
+    from multimodalemotionrecognition_torch.serving.preprocess import EmotionPreprocessService
+
+    pre = EmotionPreprocessService()
+    rows = []
+    for name, data in uploads:
+        _, audio, blank = pre.preprocess_payload(name, data, use_wavlm=True, raw_uint8=True)
+        if not blank:
+            raise AssertionError(f"{name}: the .wav upload did not take the blank-video route")
+        rows.append(runner.predict_probs_blank_video(audio)[0])
+    return np.stack(rows)
+
+
+def serve_stack_batcher(dev, card, ckpt, tmp):
+    """Part a (stdlib, numpy, scipy, torch): bursts of .wav uploads through
+    the gateway and the dynamic batcher over `TorchModelRunner`, each result
+    against a direct call; the launches per batch forward; the predictor on
+    a .wav file."""
+    from multimodalemotionrecognition_torch.config import ServeConfig
+    from multimodalemotionrecognition_torch.kernels import (
+        fused_block,
+        fused_conv_layer,
+        wavlm_attention_sublayer,
+    )
+    from multimodalemotionrecognition_torch.runtime.runner import TorchModelRunner
+    from multimodalemotionrecognition_torch.serving.predictor import EmotionPredictor
+
+    counters = {"wavlm_attention_sublayer": wavlm_attention_sublayer,
+                "fused_conv_layer": fused_conv_layer, "fused_block": fused_block}
+    uploads = _wav_uploads(STACK_REQUESTS, SEED)
+    report, launches = {}, dict.fromkeys(counters, 0)
+    # The host path once before the timed bursts: the first upload pays the
+    # import of scipy.signal, seconds in a fresh process.
+    from multimodalemotionrecognition_torch.serving.preprocess import EmotionPreprocessService
+
+    for name, data in uploads[:3]:
+        EmotionPreprocessService().preprocess_payload(name, data, use_wavlm=True, raw_uint8=True)
+    for label, dtype, fused in (("float32", "float32", False), ("bfloat16", "bfloat16", False),
+                                ("float32_fused", "float32", True)):
+        config = ServeConfig(compute_dtype=dtype, fused_xattn=fused)  # batch 8, 20 ms, buckets 1-8
+        runner = TorchModelRunner(ckpt, device=dev, batch_buckets=config.batch_buckets,
+                                  compute_dtype=config.compute_dtype, fused=config.fused_xattn,
+                                  device_normalize=config.device_normalize)
+        runner.warmup()
+        _burst(runner, uploads[:8], config)  # the batcher's first use: its threads, pinned buffers
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        results, timer, wall = _burst(runner, uploads, config)
+        torch.cuda.synchronize()
+        got_launches = {name: fn.launches for name, fn in counters.items()}
+        sizes = [int(s) for s in timer.samples("batch_size")]
+        forwards = len(sizes)
+        want_launches = {"wavlm_attention_sublayer": 12 * forwards, "fused_conv_layer": 6 * forwards,
+                         "fused_block": forwards if fused else 0}
+        if got_launches != want_launches:
+            raise AssertionError(f"serve-stack {label}: launches {got_launches}, expected "
+                                 f"{want_launches} for {forwards} batch forwards {sizes}")
+        for name in launches:
+            launches[name] += got_launches[name]
+        if sum(sizes) != len(uploads) or max(sizes) < 2:
+            raise AssertionError(f"serve-stack {label}: batch sizes {sizes}: no batch of more than one")
+        for r in results:
+            if set(r) != RESULT_KEYS or r["labels"] != runner.labels or r["worker_name"] != config.worker_name:
+                raise AssertionError(f"serve-stack {label}: malformed result {r}")
+        got = np.array([r["probs"] for r in results])
+        want = _direct_blank_video(runner, uploads)
+        err = float(np.abs(got - want).max())
+        same_top = bool((got.argmax(axis=1) == want.argmax(axis=1)).all())
+        if not (np.isfinite(got).all() and err <= PROBS_TOL[dtype] and same_top):
+            raise AssertionError(f"serve-stack {label}: batcher against direct calls max err {err:.3e} "
+                                 f"(tol {PROBS_TOL[dtype]}), same argmax {same_top}")
+        delays = np.array([r["queue_delay_ms"] for r in results])
+        stages = timer.summary()
+        report[label] = {
+            "requests": len(uploads), "batch_sizes": sizes, "launches": got_launches,
+            "max_abs_err_vs_direct": err, "clips_per_s": len(uploads) / wall,
+            "queue_delay_ms_median": float(np.median(delays)), "queue_delay_ms_max": float(delays.max()),
+            "preprocess_ms_p50": stages["preprocess"]["p50_ms"], "infer_ms_p50": stages["infer"]["p50_ms"],
+        }
+        print(f"serve-stack {label}: {len(uploads)} .wav requests in {forwards} batches {sizes}, "
+              f"launches {got_launches}; max |batcher - direct| {err:.3e} (tol {PROBS_TOL[dtype]}), "
+              f"same argmax; {len(uploads) / wall:.1f} clips/s, queue_delay_ms median "
+              f"{np.median(delays):.2f} max {delays.max():.2f}; StageTimer p50 preprocess "
+              f"{stages['preprocess']['p50_ms']} ms, infer {stages['infer']['p50_ms']} ms [{card}]")
+        del runner
+    # The direct backend's predictor on a .wav file (cv2 finds no frames: blank video).
+    path = Path(tmp) / "upload.wav"
+    path.write_bytes(uploads[0][1])
+    predictor = EmotionPredictor(checkpoint_path=str(ckpt), device=str(dev),
+                                 config=ServeConfig(checkpoint_path=str(ckpt)))
+    out = predictor.predict(str(path))
+    want = _direct_blank_video(predictor.runner, uploads[:1])[0] * 100
+    err = float(np.abs(np.array(out.get("probs", [np.nan])) - want).max())
+    if "error" in out or abs(sum(out["probs"]) - 100.0) > 1e-2 or not err <= 100 * PROBS_TOL["float32"]:
+        raise AssertionError(f"serve-stack predictor: {out} (max |predict - direct| {err:.3e} %)")
+    print(f"serve-stack predictor: predict(.wav) top1 {out['top1']}, max |predict - direct| {err:.3e} %")
+    report["predictor_err_pct"] = err
+    # What this slice added to every request of an existing path: `stage`
+    # and the forward each enter the runner's stream (1-2 times a request).
+    n = 2000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with predictor.runner._on_stream():
+            pass
+    report["stream_enter_exit_us"] = (time.perf_counter() - t0) / n * 1e6
+    print(f"serve-stack: entering and leaving the runner's stream {report['stream_enter_exit_us']:.2f} us "
+          f"(host, mean of {n}) [{card}]")
+    return launches, report
+
+
+async def _serve_on_socket(app, talk):
+    """`app` on 127.0.0.1 (a free port) through AppRunner + TCPSite; -> talk(base_url)."""
+    from aiohttp import web
+
+    runner = web.AppRunner(app)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    try:
+        host, port = runner.addresses[0][:2]
+        return await talk(f"http://{host}:{port}")
+    finally:
+        await runner.cleanup()
+
+
+async def _ws_stream_session(session, base):
+    """One /ws/stream session: JPEG frames of a face-like scene and 3.5 s of
+    PCM16 audio, until a prediction comes back."""
+    import base64
+
+    import cv2
+
+    frame = np.full((120, 160, 3), 30, np.uint8)
+    frame[30:80, 50:90] = (110, 140, 200)  # BGR skin tone
+    jpeg = base64.b64encode(cv2.imencode(".jpg", frame)[1].tobytes()).decode()
+    pcm = (np.random.RandomState(SEED).randn(56000) * 3000).astype(np.int16)
+    messages = []
+    async with session.ws_connect(base + "/ws/stream") as ws:
+        messages.append(await ws.receive_json(timeout=60))
+        await ws.send_json({"type": "start"})
+        messages.append(await ws.receive_json(timeout=60))
+        for i in range(4):
+            await ws.send_json({"type": "frame", "image_b64": jpeg, "timestamp": 0.2 * i})
+        for chunk in np.array_split(pcm, 4):
+            await ws.send_json({"type": "audio", "sample_rate": 16000,
+                                "pcm_b64": base64.b64encode(chunk.tobytes()).decode()})
+        while messages[-1].get("type") != "prediction":
+            messages.append(await ws.receive_json(timeout=60))
+        await ws.send_json({"type": "stop"})
+        messages.append(await ws.receive_json(timeout=60))
+    kinds = [m["type"] for m in messages]
+    if kinds[:2] != ["session_started", "ack"] or kinds[-2:] != ["prediction", "session_stopped"]:
+        raise AssertionError(f"serve-stack ws: messages {kinds}")
+    payload = messages[-2]["payload"]
+    if "error" in payload or abs(sum(payload["probs"]) - 100.0) > 1e-2 or payload["num_audio_samples"] != 48000:
+        raise AssertionError(f"serve-stack ws: bad prediction {payload}")
+    return payload
+
+
+def serve_stack_http(dev, card, ckpt):
+    """Part b: both apps on a socket with the real runner: /health, POST
+    /predict of a .wav, /queue/status, one WebSocket session each."""
+    import asyncio
+
+    import aiohttp
+    import cv2  # noqa: F401  (the streaming frames' codec; a missing package fails the run)
+
+    from multimodalemotionrecognition_torch.config import ServeConfig
+    from multimodalemotionrecognition_torch.serving import server_direct, server_queued
+
+    config = ServeConfig(checkpoint_path=str(ckpt))
+    name, data = _wav_uploads(1, SEED + 1)[0]
+    report = {}
+
+    async def talk_direct(base):
+        async with aiohttp.ClientSession() as session:
+            async with session.get(base + "/health") as r:
+                health = await r.json()
+            form = aiohttp.FormData()
+            form.add_field("file", data, filename=name)
+            async with session.post(base + "/predict", data=form) as r:
+                status, pred = r.status, await r.json()
+            ws = await _ws_stream_session(session, base)
+        if health["device"] != "gpu" or health["mock_mode"] is not False or status != 200 or "error" in pred:
+            raise AssertionError(f"serve-stack direct app: health {health}, predict {status} {pred}")
+        return {"health": health, "predict_top1": pred["top1"], "ws_top1": ws["top1"]}
+
+    async def talk_queued(base):
+        async with aiohttp.ClientSession() as session:
+            async with session.get(base + "/health") as r:
+                health = await r.json()
+            form = aiohttp.FormData()
+            form.add_field("file", data, filename=name)
+            async with session.post(base + "/predict", data=form) as r:
+                status, pred = r.status, await r.json()
+            async with session.get(base + "/queue/status") as r:
+                queue = await r.json()
+            async with session.get(base + "/metrics") as r:
+                metrics = await r.json()
+            ws = await _ws_stream_session(session, base)
+        if (health["status"] != "ok" or status != 200 or set(pred) != RESULT_KEYS
+                or abs(sum(pred["probs"]) - 1.0) > 1e-4 or queue["queue_key"] != config.queue_name):
+            raise AssertionError(f"serve-stack queued app: health {health}, predict {status} {pred}, "
+                                 f"queue {queue}")
+        return {"health_status": health["status"], "predict_top1": pred["top1"],
+                "queue_status": queue, "stages": metrics["stages"], "ws_top1": ws["top1"]}
+
+    for label, make, talk in (
+        ("direct", lambda: server_direct.create_app(config=config, checkpoint=str(ckpt), device=str(dev)),
+         talk_direct),
+        ("queued", lambda: server_queued.create_app(config=config, device=str(dev)), talk_queued),
+    ):
+        t0 = time.perf_counter()
+        app = make()
+        report[label] = asyncio.run(_serve_on_socket(app, talk))
+        report[label]["wall_s"] = time.perf_counter() - t0
+        print(f"serve-stack http {label} app on 127.0.0.1: {report[label]} [{card}]")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1907,6 +2201,8 @@ def main() -> int:
         modular = {dtype: runners[f"{dtype}_kernels"] for dtype in ("bfloat16", "float32")}
         launches["fused_block"], fused_runners = serve_fused(
             dev, card, ckpt, cfg, video, audio, modular)
+        stack_launches, stack_report = serve_stack_batcher(dev, card, ckpt, tmp)
+        stack_report["http"] = serve_stack_http(dev, card, ckpt)
     runners.update(fused_runners)
     launches["fused_bidirectional_xattn"], k4["against_modules"] = block_entries(
         dev, modular, video, audio)
@@ -1982,8 +2278,14 @@ def main() -> int:
     # K1 and K3 on this slice's paths: the bench forward and the transformer-pooler model.
     kernels[0]["launches_families"] = {d: n[0] for d, n in family_launches.items()}
     kernels[1]["launches_families"] = {d: n[1] for d, n in family_launches.items()}
-    print(json.dumps({"kernels": kernels, "serve": perf, "families": family_perf,
-                      "bench": bench_report, "train": train_report, "card": card}))
+    # ... and the serve stack's bursts through the dynamic batcher (phase 5a).
+    for entry in kernels[:3]:
+        entry["launches_serve_stack"] = stack_launches[entry["name"]]
+        if entry["launches_serve_stack"] < 1:
+            raise AssertionError(f"{entry['name']} was not launched on the serve stack's path")
+    print(json.dumps({"kernels": kernels, "serve": perf, "serve_stack": stack_report,
+                      "families": family_perf, "bench": bench_report, "train": train_report,
+                      "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

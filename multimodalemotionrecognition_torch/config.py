@@ -4,8 +4,9 @@ The port's own copy of what it uses from the JAX package's `config` module:
 `ModelConfig`, `TrainConfig`, `ServeConfig`, `labels_for` and the ImageNet
 constants, with the same field names, defaults and environment variables, so
 a checkpoint's config dict builds either package's model.
-`ServeConfig.make_mesh` (it builds a JAX device mesh) is left out;
-`AudioConfig`, `VideoConfig` and `DataConfig` come with the data slice.
+`AudioConfig` and `VideoConfig` (the serving path's preprocessing constants)
+are copied too. `ServeConfig.make_mesh` (it builds a JAX device mesh) is left
+out; `DataConfig` comes with the data slice.
 `WavLMConfig` is copied from the JAX package's `models/wavlm.py`: a
 checkpoint's `wavlm_geometry` dict builds either package's model.
 """
@@ -17,6 +18,7 @@ import os
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 __all__ = [
+    "AudioConfig",
     "EMOTION_LABELS_4",
     "EMOTION_LABELS_8",
     "IMAGENET_MEAN",
@@ -24,6 +26,7 @@ __all__ = [
     "ModelConfig",
     "ServeConfig",
     "TrainConfig",
+    "VideoConfig",
     "WavLMConfig",
     "labels_for",
 ]
@@ -175,6 +178,37 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class AudioConfig:
+    """Audio preprocessing constants (reference backend/app/config.py:9-15)."""
+
+    sample_rate: int = 16000
+    duration_sec: float = 3.0
+    n_mels: int = 64
+    win_length: int = 400
+    hop_length: int = 160
+    n_fft: int = 400
+
+    @property
+    def target_len(self) -> int:
+        return int(self.sample_rate * self.duration_sec)
+
+    @property
+    def num_frames(self) -> int:
+        # center=True STFT framing (torchaudio semantics).
+        return 1 + self.target_len // self.hop_length
+
+
+@dataclasses.dataclass(frozen=True)
+class VideoConfig:
+    """Video preprocessing constants (reference backend/app/config.py:9-12)."""
+
+    num_frames: int = 8
+    size: int = 112
+    face_crop: bool = True
+    face_pad_ratio: float = 0.3
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters (reference src/train.py:473-672 defaults),
     field for field the JAX package's `TrainConfig`.
@@ -253,7 +287,7 @@ class ServeConfig:
     # "float32" preserves reference logit parity; "bfloat16" for throughput.
     compute_dtype: str = "float32"
     # The whole-fusion-block kernel (`TorchModelRunner(fused=True)`) for xattn
-    # checkpoints; read by the HTTP entry, which is not ported yet.
+    # checkpoints; read by `serving/server_queued.py`.
     fused_xattn: bool = False
     # uint8 video wire format with on-device normalization.
     device_normalize: bool = True

@@ -1,5 +1,5 @@
 from multimodalemotionrecognition_torch.ops.attention import TorchMultiHeadAttention
-from multimodalemotionrecognition_torch.ops.image import adaptive_avg_pool_2d
+from multimodalemotionrecognition_torch.ops.image import adaptive_avg_pool_2d, uniform_frame_indices
 from multimodalemotionrecognition_torch.ops.mel import (
     amplitude_to_db,
     log_mel_spectrogram,
@@ -30,4 +30,5 @@ __all__ = [
     "mel_spectrogram",
     "modality_dropout_mask",
     "spec_augment",
+    "uniform_frame_indices",
 ]

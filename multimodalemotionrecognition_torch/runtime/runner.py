@@ -12,6 +12,10 @@ the duck-typed contract that `serving/batcher.py` relies on:
     `batch_buckets`, so the device sees a few fixed shapes.
   * Wires: uint8 video normalised on the device (`device_normalize`), and
     int16 PCM audio dequantised on the device.
+  * One CUDA stream: `stage` (the host->device copy, started without
+    waiting) and the forward run on the stream the runner was made on,
+    whichever thread calls them, so a copy staged on one thread is ordered
+    before the forward another thread runs on it (`serving/batcher.py`).
   * float32 or bfloat16 compute (the model's weights are cast once).
   * `quantize_int8=True`: weight-only int8 for the `nn.Linear` matrices
     (`runtime/quant.py`), stored int8 on the device and dequantised where
@@ -35,6 +39,7 @@ yet and raise `NotImplementedError`.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from pathlib import Path
@@ -179,6 +184,9 @@ class TorchModelRunner:
         if self.use_wavlm and fusion != "video":
             encoder = self.model if fusion == "audio" else self.model.audio_model
             encoder.wavlm.cache_kernel_operands()
+        self._stream = (
+            torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
+        )
         self._mean = torch.tensor(IMAGENET_MEAN, device=self.device).view(1, 1, 3, 1, 1)
         self._std = torch.tensor(IMAGENET_STD, device=self.device).view(1, 1, 3, 1, 1)
 
@@ -214,6 +222,10 @@ class TorchModelRunner:
             return out.float()
         return torch.softmax(out.float(), dim=1)
 
+    def _on_stream(self):
+        """The runner's stream as the calling thread's current one."""
+        return torch.cuda.stream(self._stream) if self._stream is not None else contextlib.nullcontext()
+
     def _put_batch(self, arr) -> torch.Tensor:
         """Host array -> device tensor; staged tensors pass through."""
         if isinstance(arr, torch.Tensor):
@@ -237,21 +249,24 @@ class TorchModelRunner:
         """Bucket-pad and start the host->device copy without waiting; pass
         the result to `predict_probs` (with its `n`)."""
         videos, audios, n = self._pad_to_bucket(videos, audios)
-        return self._put_batch(videos), self._put_batch(audios), n
+        with self._on_stream():
+            return self._put_batch(videos), self._put_batch(audios), n
 
     def stage_audio(self, audios) -> Tuple[torch.Tensor, int]:
         """`stage` for blank-video (audio-only) batches."""
         audios = _host_audio(audios)
         n = audios.shape[0]
-        return self._put_batch(_pad_rows(audios, _bucket_for(n, self.batch_buckets))), n
+        with self._on_stream():
+            return self._put_batch(_pad_rows(audios, _bucket_for(n, self.batch_buckets))), n
 
     def predict_probs(self, videos, audios, n: Optional[int] = None) -> np.ndarray:
         """[B, ...] inputs -> [B, num_classes] probabilities (host numpy).
         Inputs may be pre-staged tensors from `stage` (pass its `n`)."""
         if n is None:
             videos, audios, n = self._pad_to_bucket(videos, audios)
-        probs = self._forward(self._put_batch(videos), self._put_batch(audios))
-        return probs.cpu().numpy()[:n]
+        with self._on_stream():
+            probs = self._forward(self._put_batch(videos), self._put_batch(audios))
+            return probs.cpu().numpy()[:n]
 
     def predict_probs_blank_video(self, audios, n: Optional[int] = None) -> np.ndarray:
         """Audio-only batches (e.g. bare .wav uploads): the blank video is
@@ -259,13 +274,14 @@ class TorchModelRunner:
         may be pre-staged by `stage_audio` (pass its `n`)."""
         if n is None:
             audios, n = self.stage_audio(audios)
-        audio = self._put_batch(audios)
-        shape = (audio.shape[0], _FRAMES, 3, _FRAME_SIZE, _FRAME_SIZE)
-        if self.device_normalize:
-            video = torch.zeros(shape, dtype=torch.uint8, device=self.device)
-        else:
-            video = (-self._mean / self._std).expand(shape)
-        return self._forward(video, audio).cpu().numpy()[:n]
+        with self._on_stream():
+            audio = self._put_batch(audios)
+            shape = (audio.shape[0], _FRAMES, 3, _FRAME_SIZE, _FRAME_SIZE)
+            if self.device_normalize:
+                video = torch.zeros(shape, dtype=torch.uint8, device=self.device)
+            else:
+                video = (-self._mean / self._std).expand(shape)
+            return self._forward(video, audio).cpu().numpy()[:n]
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
         """Run each bucket once (kernel builds, cuDNN algorithm choice)."""

@@ -1,29 +1,32 @@
-"""Direct-backend predictor on preprocessed tensors.
+"""Direct-backend predictor (reference `backend/app/infer.py:13-118`).
 
-Counterpart of the JAX package's `serving/predictor.py` (reference
-`backend/app/infer.py:13-118`), with the same JSON contract:
+Counterpart of the JAX package's `serving/predictor.py`, with the same JSON
+contract:
 
   * probabilities are returned x100 (percent), with `labels` and `top1`;
   * late fusion's output (already probabilities) is softmaxed once more, as
-    the reference direct backend does (`backend/app/infer.py:98-99`).
+    the reference direct backend does (`backend/app/infer.py:98-99`);
+  * a request whose media cannot be preprocessed returns a uniform
+    distribution plus an "error" field (`:54-61`).
 
 Unlike the JAX predictor, a runner that fails to build is an error, not a
 silent switch to random mock output: that would hide a dead device.  Mock
-output is only given when asked for (`mock_mode=True` or `EMO_MOCK=1`).
-Decoding media files needs the host-side preprocessing stack, which is not
-ported yet; this predictor takes tensors.  `predict_waveform` is the audio
-half of that stack: for a mel model the waveform goes through
-`log_mel_spectrogram_np` on the host, as the JAX package's preprocessing does.
+output is only given when asked for (`mock_mode=True` or `EMO_MOCK=1`).  For
+the same reason a failure of the forward itself (a kernel, the device)
+raises; only preprocessing failures become the "error" reply.
+`predict_waveform` takes a clip's frames and its 16 kHz waveform: for a mel
+model the waveform goes through `log_mel_spectrogram_np` on the host.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
 from multimodalemotionrecognition_torch.config import ServeConfig, labels_for
 from multimodalemotionrecognition_torch.ops.mel import log_mel_spectrogram_np
+from multimodalemotionrecognition_torch.serving.preprocess import EmotionPreprocessService
 
 __all__ = ["EmotionPredictor"]
 
@@ -42,6 +45,7 @@ class EmotionPredictor:
         self.mock_mode = mock_mode or cfg.mock
         self.emotion_labels: List[str] = list(labels_for(num_classes))
         self.use_wavlm = False
+        self.preprocess = EmotionPreprocessService()
         self.runner = None
         if self.mock_mode:
             return
@@ -61,6 +65,40 @@ class EmotionPredictor:
         self.runner = runner
         self.use_wavlm = runner.use_wavlm
         self.emotion_labels = list(runner.labels)
+
+    def predict(self, video_path: str) -> Dict[str, Any]:
+        """A media file (its frames and its audio track) -> the JSON dict."""
+        if self.mock_mode:
+            return self._predict_mock()
+        try:
+            video, audio = self.preprocess.preprocess_video_audio(
+                video_path, use_face_crop=True, use_wavlm=self.use_wavlm
+            )
+        except Exception as e:
+            return self._error_output(str(e))
+        return self.predict_tensors(video, audio)
+
+    def predict_stream(
+        self,
+        frames: Sequence[np.ndarray],
+        waveform: np.ndarray,
+        waveform_sample_rate: int,
+        use_face_crop: bool = True,
+    ) -> Dict[str, Any]:
+        """A streaming window (BGR frames, waveform at its rate) -> the JSON dict."""
+        if self.mock_mode:
+            return self._predict_mock()
+        try:
+            video, audio = self.preprocess.preprocess_stream_window(
+                frames,
+                waveform,
+                waveform_sample_rate=waveform_sample_rate,
+                use_face_crop=use_face_crop,
+                use_wavlm=self.use_wavlm,
+            )
+        except Exception as e:
+            return self._error_output(str(e))
+        return self.predict_tensors(video, audio)
 
     def predict_tensors(self, video: np.ndarray, audio: np.ndarray) -> Dict[str, Any]:
         """One clip's preprocessed tensors ([1, T, 3, H, W], [1, 1, samples])
@@ -85,6 +123,16 @@ class EmotionPredictor:
     def _predict_mock(self) -> Dict[str, Any]:
         probs = np.random.dirichlet(np.ones(len(self.emotion_labels)))
         return self._format_output(probs)
+
+    def _error_output(self, message: str) -> Dict[str, Any]:
+        n = len(self.emotion_labels)
+        uniform = 1.0 / n * 100
+        return {
+            "error": message,
+            "labels": self.emotion_labels,
+            "probs": [uniform] * n,
+            "top1": {"label": self.emotion_labels[0], "prob": uniform},
+        }
 
     def _format_output(self, probs: np.ndarray) -> Dict[str, Any]:
         probs_pct = (np.asarray(probs, dtype=np.float64) * 100).tolist()

@@ -933,3 +933,126 @@ def test_trainer_warm_start_then_step(cuda, tmp_path):
             assert (value - want[key]).abs().max().item() <= tol, key
     got, want = _stage2_step_launches(trainer, state, runs, _flagship_batch(cuda, 2, seed=1))
     assert got == want, (got, want, runs)
+
+
+# ---------------------------------------------------------------------------
+# the serving stack: the dynamic batcher over the kernels' runner
+# ---------------------------------------------------------------------------
+
+SERVE_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
+
+
+@pytest.fixture(scope="module")
+def flagship_ckpt(tmp_path_factory):
+    """The full-width flagship, random weights from a seed, as a reference-format .pt."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from multimodalemotionrecognition_torch.config import ModelConfig
+    from multimodalemotionrecognition_torch.models.factory import build_model
+
+    cfg = ModelConfig(fusion="xattn", use_wavlm=True)
+    model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    path = tmp_path_factory.mktemp("serve") / "flagship.pt"
+    torch.save({"model": model.state_dict(), "config": cfg.to_checkpoint_dict()}, path)
+    return str(path)
+
+
+def _wav_payloads(n, seed):
+    """.wav uploads of seeded noise at 16, 48 and 22.05 kHz (3, 2 and 4 s)."""
+    import io
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        sr, seconds = ((16000, 3.0), (48000, 2.0), (22050, 4.0))[i % 3]
+        buf = io.BytesIO()
+        wavfile.write(buf, sr, np.clip(rng.randn(int(sr * seconds)) * 4000, -32768, 32767).astype(np.int16))
+        out.append((f"clip{i}.wav", buf.getvalue()))
+    return out
+
+
+def _burst_through_the_batcher(runner, bursts):
+    """Each burst's uploads submitted at once to a gateway + `DynamicBatcher`
+    over `runner`, one burst after another; -> per burst the results in
+    submission order, and the batcher's batch sizes."""
+    import asyncio
+
+    from multimodalemotionrecognition_torch.config import ServeConfig
+    from multimodalemotionrecognition_torch.serving.batcher import DynamicBatcher, InferenceGateway
+
+    async def scenario():
+        cfg = ServeConfig()
+        gateway = InferenceGateway(cfg)
+        batcher = DynamicBatcher(gateway, runner, cfg)
+        task = asyncio.create_task(batcher.run())
+        results = []
+        for payloads in bursts:
+            ids = await gateway.submit_many(payloads)
+            results.append(await asyncio.gather(*(gateway.wait_for_result(t) for t in ids)))
+        batcher.stop()
+        await task
+        return results, batcher.timer.samples("batch_size")
+
+    return asyncio.run(scenario())
+
+
+def _direct_probs(runner, payloads):
+    """Each upload's preprocessed audio through `predict_probs_blank_video` alone."""
+    import numpy as np
+
+    from multimodalemotionrecognition_torch.serving.preprocess import EmotionPreprocessService
+
+    pre = EmotionPreprocessService()
+    rows = []
+    for name, data in payloads:
+        _, audio, blank = pre.preprocess_payload(name, data, use_wavlm=True, raw_uint8=True)
+        assert blank
+        rows.append(runner.predict_probs_blank_video(audio)[0])
+    return np.stack(rows)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_batcher_on_the_card_matches_direct_calls(cuda, flagship_ckpt, dtype):
+    """A burst of 12 .wav uploads through the batcher (ServeConfig's defaults:
+    batches of up to 8, buckets 1, 2, 4, 8, the int16 wire, the blank-video
+    route): every result within the serving tolerance of a direct call, the
+    same argmax, 12 K1 + 6 K3 launches per batch forward."""
+    import numpy as np
+
+    from multimodalemotionrecognition_torch.runtime.runner import TorchModelRunner
+
+    runner = TorchModelRunner(flagship_ckpt, device=cuda, compute_dtype=dtype, device_normalize=True)
+    runner.warmup()
+    payloads = _wav_payloads(12, seed=1)
+    before = (wavlm_attention_sublayer.launches, fused_conv_layer.launches)
+    (results,), sizes = _burst_through_the_batcher(runner, [payloads])
+    launches = (wavlm_attention_sublayer.launches - before[0], fused_conv_layer.launches - before[1])
+    assert sum(sizes) == 12 and max(sizes) > 1, sizes
+    assert launches == (12 * len(sizes), 6 * len(sizes)), (launches, sizes)
+    got = np.array([r["probs"] for r in results])
+    want = _direct_probs(runner, payloads)
+    assert np.abs(got - want).max() <= SERVE_TOL[dtype]
+    assert (got.argmax(axis=1) == want.argmax(axis=1)).all()
+
+
+def test_batcher_bursts_in_a_row_keep_the_staged_copy_ordered(cuda, flagship_ckpt):
+    """The batcher stages batch N+1's host->device copy on the event loop's
+    thread while batch N's forward runs in an executor thread.  Eight bursts
+    in a row, each of new uploads: every result within 1e-3 of a direct call
+    (a copy not ordered before its forward would hand a batch stale or
+    partial audio)."""
+    import numpy as np
+
+    from multimodalemotionrecognition_torch.runtime.runner import TorchModelRunner
+
+    runner = TorchModelRunner(flagship_ckpt, device=cuda, device_normalize=True)
+    runner.warmup()
+    bursts = [_wav_payloads(10, seed=10 + k) for k in range(8)]
+    results, sizes = _burst_through_the_batcher(runner, bursts)
+    assert sum(sizes) == 80 and max(sizes) > 1, sizes
+    for payloads, burst in zip(bursts, results):
+        got = np.array([r["probs"] for r in burst])
+        assert np.abs(got - _direct_probs(runner, payloads)).max() <= SERVE_TOL["float32"]

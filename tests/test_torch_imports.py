@@ -35,7 +35,11 @@ def test_port_imports_no_jax_or_flax():
     assert "multimodalemotionrecognition_torch.runtime.fused" in report["modules"]
     for module in ("train.trainer", "train.freeze", "utils.metrics", "utils.seed", "utils.device",
                    "ops.stochastic", "bench", "bench.attn_tile", "bench.forward", "entry",
-                   "ops.mel", "ops.image", "models.audio", "kernels.wavlm_attn_tiled"):
+                   "ops.mel", "ops.image", "models.audio", "kernels.wavlm_attn_tiled",
+                   "__main__", "data", "data.face", "data.haar", "data.media", "utils.profiling",
+                   "serving", "serving.preprocess", "serving.predictor", "serving.batcher",
+                   "serving.streaming", "serving.http", "serving.server_direct",
+                   "serving.server_queued", "serving.redis_transport"):
         assert f"multimodalemotionrecognition_torch.{module}" in report["modules"]
     assert report["heavy"] == []
     # Not even the JAX package's framework-free modules: the port has its own config.
