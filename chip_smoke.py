@@ -2,9 +2,11 @@
 """GPU smoke run of the PyTorch port: build, check and time its kernels,
 serve the flagship model at full width through `TorchModelRunner` and the
 serving stack (dynamic batcher, HTTP apps, WebSocket streaming), run the
-measurement entry points, serve the other model families, and train the
+measurement entry points, serve the other model families, train the
 flagship through `EmotionTrainer` (with gradient accumulation, the alignment
-loss, the branch warm start, resume and the test confusion matrix).
+loss, the branch warm start, resume and the test confusion matrix), and
+train from a generated corpus through the data pipeline and the `train`,
+`eval` and convergence-gate entry points.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
@@ -150,6 +152,23 @@ Phases (the first failure ends the run with a non-zero exit code):
                step; `fit` with a test loader: `confusion_matrix.csv` sums to
                the valid test clips and equals the eval predictions' matrix.
                The phase's wall time.
+
+  11. data cli - in a temporary working directory: (a) `make-data`: the
+               convergence gate's corpus (8 actors x 8 emotions x 4 clips of
+               1 s at 10 fps, strong signal, s=0.4, seed 7) and the command's
+               default corpus (4 actors x 8 emotions x 1 clip of 3 s), pair
+               counts and seconds; (b) `bench.convergence_gate` at its
+               defaults (gated, 12 epochs, batch 16, 4 frames of 64 px, the
+               uint8 wire): its JSON line, the decode threads and CPUs, the
+               train loader's median wait per batch beside the median host
+               step; the run fails below 0.70 actor-held-out test accuracy;
+               (c) the flagship two-stage (1 + 1 epochs, batch 16, 8 frames of
+               112 px, face crop, float32) through `train.cli.main`: losses,
+               accuracies, epoch times, loader waits, every K1, K2 and K3
+               launch of the run against each WavLM forward's LayerDrop draws
+               and trainable layers; then `train.eval.main` on its best
+               checkpoint: accuracy equal to a float32 `TorchModelRunner` on
+               the same 8 test clips, the same argmax on each.
 
 The line before the last two is the JSON kernel report; then the card's
 line; the last line is {"ok": true, "device": {...}}.
@@ -2147,6 +2166,235 @@ def serve_stack_http(dev, card, ckpt):
     return report
 
 
+# --------------------------------------------------------------------------- phase 11: data and train CLI
+
+GATE_TARGET = 0.70  # actor-held-out test accuracy (the JAX gate's target)
+FLAGSHIP_CLI_ARGV = [
+    "--fusion", "xattn", "--use_wavlm", "--two_stage_training", "--stage1_epochs", "1",
+    "--epochs", "2", "--batch_size", "16", "--frames", "8", "--img_size", "112",
+    "--split_mode", "actor", "--train_actors", "1,2", "--val_actors", "3", "--test_actors", "4",
+]
+
+
+class _ForwardLog:
+    """While entered, through a global module forward hook: after each WavLM
+    forward its `layers_run` and the encoder layers trainable in it (none
+    without autograd), and each fusion model's output."""
+
+    def __enter__(self):
+        from multimodalemotionrecognition_torch.models.fusion import FusionModel
+        from multimodalemotionrecognition_torch.models.wavlm import WavLMModel
+
+        self.wavlm, self.outputs = [], []
+
+        def hook(module, args, out):
+            if isinstance(module, WavLMModel):
+                trainable = set()
+                if torch.is_grad_enabled():
+                    trainable = {i for i, layer in enumerate(module.encoder.layers)
+                                 if layer.attention.q_proj.weight.requires_grad}
+                self.wavlm.append((list(module.layers_run), trainable))
+            elif isinstance(module, FusionModel):
+                self.outputs.append((out[0] if isinstance(out, tuple) else out).detach())
+
+        self._handle = torch.nn.modules.module.register_module_forward_hook(hook)
+        return self
+
+    def __exit__(self, *exc):
+        self._handle.remove()
+
+    def launches(self) -> dict:
+        """What the logged forwards launch: 12 K1 less the LayerDrop skips and
+        6 K3 each, one K2 per trainable encoder layer that ran."""
+        return {"wavlm_attention_sublayer": sum(len(ran) for ran, _ in self.wavlm),
+                "fused_conv_layer": 6 * len(self.wavlm),
+                "wavlm_attention_sublayer_backward": sum(
+                    len(set(ran) & trainable) for ran, trainable in self.wavlm)}
+
+
+class _LoaderClock:
+    """While entered: for every shuffled (train) `BatchedLoader`, the host
+    seconds each `next()` waited for a batch and the host seconds between
+    handing a batch out and asking for the next (the step's host side: the
+    staged copy and the queued step; the device runs behind it)."""
+
+    def __enter__(self):
+        from multimodalemotionrecognition_torch.data import pipeline
+
+        self.waits, self.steps = [], []
+        self._cls, self._original = pipeline.BatchedLoader, pipeline.BatchedLoader.__iter__
+        original, clock = self._original, self
+
+        def timed(loader):
+            it = original(loader)
+            handed = None
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    if handed is not None and loader.shuffle:
+                        clock.steps.append(t0 - handed)
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        return
+                    handed = time.perf_counter()
+                    if loader.shuffle:
+                        clock.waits.append(handed - t0)
+                    yield batch
+            finally:
+                it.close()
+
+        self._cls.__iter__ = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.__iter__ = self._original
+
+    def summary(self) -> dict:
+        waits, steps = np.array(self.waits), np.array(self.steps)
+        return {"loader_wait_ms_median": float(np.median(waits)) * 1e3,
+                "host_step_ms_median": float(np.median(steps)) * 1e3,
+                "loader_wait_share": float(waits.sum() / (waits.sum() + steps.sum())),
+                "train_batches": int(waits.size)}
+
+
+def data_cli(dev, card):
+    """Phase 11 -> (launches of the flagship's CLI training run, report).
+    In a temporary working directory (pairs.csv and outputs/ land there)."""
+    import os
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            return _data_cli(dev, card, Path(tmp))
+        finally:
+            os.chdir(cwd)
+
+
+def _data_cli(dev, card, tmp):
+    import os
+
+    from multimodalemotionrecognition_torch.bench import convergence_gate
+    from multimodalemotionrecognition_torch.config import DataConfig
+    from multimodalemotionrecognition_torch.data import synthetic
+    from multimodalemotionrecognition_torch.data.pipeline import auto_num_threads, build_loaders
+    from multimodalemotionrecognition_torch.data.ravdess import build_pairs
+    from multimodalemotionrecognition_torch.kernels import (
+        fused_conv_layer,
+        wavlm_attention_sublayer,
+        wavlm_attention_sublayer_backward,
+    )
+    from multimodalemotionrecognition_torch.runtime.runner import TorchModelRunner
+    from multimodalemotionrecognition_torch.train import cli
+    from multimodalemotionrecognition_torch.train import eval as train_eval
+
+    t_phase = time.perf_counter()
+    counters = {"wavlm_attention_sublayer": wavlm_attention_sublayer,
+                "fused_conv_layer": fused_conv_layer,
+                "wavlm_attention_sublayer_backward": wavlm_attention_sublayer_backward}
+    report = {"card": card}
+
+    # (a) make-data: the gate's corpus (the gate's own writer and
+    # defaults), then the flagship's through the command's defaults.
+    t0 = time.perf_counter()
+    n_gate = convergence_gate.write_corpus(tmp / "gate", 0.4)
+    gate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    synthetic.main(["--root", str(tmp / "flagship")])
+    flagship_s = time.perf_counter() - t0
+    n_flagship = len(build_pairs(tmp / "flagship"))
+    report["make_data"] = {"gate_pairs": n_gate, "gate_s": gate_s, "flagship_pairs": n_flagship,
+                           "flagship_s": flagship_s}
+    print(f"data cli make-data: the gate's corpus {n_gate} pairs (1 s, 10 fps) in {gate_s:.2f} s, "
+          f"the flagship's {n_flagship} pairs (3 s) in {flagship_s:.2f} s [{card}]")
+    if (n_gate, n_flagship) != (256, 32):
+        raise AssertionError(f"data cli make-data: {n_gate} and {n_flagship} pairs")
+
+    # (b) the convergence gate at its defaults (gated, s=0.4, 12 epochs; the
+    # uint8 wire on the card).  A miss ends the run.
+    with _LoaderClock() as clock:
+        gate = convergence_gate.gate(["--root", str(tmp / "gate")])
+    loader = clock.summary()
+    report["gate"] = {**gate, **loader, "auto_num_threads": auto_num_threads(),
+                      "cpu_count": os.cpu_count()}
+    print(f"data cli gate: actor-held-out test accuracy {gate['value']} (target {GATE_TARGET}; the "
+          f"JAX calibration read 0.8125 on a TPU), margin {gate['mean_top1_margin']}, "
+          f"{gate['train_seconds']} s for {gate['epochs']} epochs; {loader['train_batches']} train "
+          f"batches on {auto_num_threads()} decode threads ({os.cpu_count()} CPUs): loader wait "
+          f"median {loader['loader_wait_ms_median']:.1f} ms, host step median "
+          f"{loader['host_step_ms_median']:.1f} ms, waited share {loader['loader_wait_share']:.2f} "
+          f"[{card}]")
+    if not (gate["pass"] and gate["value"] >= GATE_TARGET and gate["backend"] == "cuda"):
+        raise AssertionError(f"data cli gate: {gate}")
+
+    # (c) the flagship through `train` at full width (face crop on, f32):
+    # counters from 0, every kernel launch of the run held against the
+    # LayerDrop draws of each forward.
+    out_dir = tmp / "outputs"
+    argv = ["--data_root", str(tmp / "flagship"), "--output_dir", str(out_dir), *FLAGSHIP_CLI_ARGV]
+    for fn in counters.values():
+        fn.launches = 0
+    with _LoaderClock() as clock, _ForwardLog() as log:
+        t0 = time.perf_counter()
+        result = cli.main(argv, device=dev)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = log.launches()
+    history = result["history"]
+    flagship = {
+        "train_losses": [float(row["train/loss"]) for row in history],
+        "val_losses": [float(row["val/loss"]) for row in history],
+        "val_acc": [float(row["val/acc"]) for row in history],
+        "epoch_s": [row["epoch_time_sec"] for row in history],
+        "test_acc": result["test"]["acc"], "test_f1": result["test"]["f1"],
+        "best_val_f1": result["best_val_f1"], "wall_s": cli_s, "forwards": len(log.wavlm),
+        "launches": launches, **clock.summary(),
+    }
+    report["flagship_cli"] = flagship
+    print(f"data cli flagship train: losses {flagship['train_losses']} (val "
+          f"{flagship['val_losses']}), val acc {flagship['val_acc']}, test acc "
+          f"{flagship['test_acc']:.4f} f1 {flagship['test_f1']:.4f}; epochs "
+          f"{flagship['epoch_s']} s, {cli_s:.1f} s in all; loader wait median "
+          f"{flagship['loader_wait_ms_median']:.1f} ms, host step median "
+          f"{flagship['host_step_ms_median']:.1f} ms [{card}]")
+    print(f"data cli flagship train: {len(log.wavlm)} WavLM forwards, layers run and trainable "
+          f"{log.wavlm}; launches {launches}, expected {want}")
+    if launches != want or not all(np.isfinite(flagship["train_losses"] + flagship["val_losses"])):
+        raise AssertionError(f"data cli flagship: launches {launches}, expected {want}; {flagship}")
+
+    # `eval` on the best checkpoint against the runner on the same test clips.
+    ckpt = out_dir / "best_xattn.pt"
+    seen = {name: fn.launches for name, fn in counters.items()}
+    with _ForwardLog() as log:
+        metrics = train_eval.main(["--checkpoint", str(ckpt), "--data_root", str(tmp / "flagship"),
+                                   "--test_actors", "4"], device=dev)
+    evaluated = {name: fn.launches - seen[name] for name, fn in counters.items()}
+    dc = DataConfig(data_root=str(tmp / "flagship"), split_mode="actor", train_actors=(),
+                    val_actors=(), test_actors=(4,))
+    batch = next(iter(build_loaders(dc, 16)[2]))  # the clips `eval` read
+    valid, labels = batch.valid, batch.labels[batch.valid]
+    eval_preds = log.outputs[0].argmax(dim=1).cpu().numpy()[valid] if log.outputs else None
+    runner = TorchModelRunner(ckpt, device=dev, compute_dtype="float32")
+    runner_preds = runner.predict_probs(batch.video[valid], batch.audio[valid]).argmax(axis=1)
+    runner_acc = float((runner_preds == labels).mean())
+    report["eval"] = {"acc": metrics["acc"], "f1": metrics["f1"], "runner_acc": runner_acc,
+                      "clips": int(valid.sum()), "launches": evaluated}
+    print(f"data cli eval: accuracy {metrics['acc']:.4f} f1 {metrics['f1']:.4f} on {valid.sum()} "
+          f"test clips, the runner on the same checkpoint {runner_acc:.4f}; predictions eval "
+          f"{eval_preds} runner {runner_preds}; launches {evaluated} over {len(log.wavlm)} forwards")
+    if (len(log.outputs) != 1 or valid.sum() != 8 or evaluated != log.launches()
+            or not np.array_equal(eval_preds, runner_preds) or metrics["acc"] != runner_acc):
+        raise AssertionError(f"data cli eval: {report['eval']}, eval predictions {eval_preds}, "
+                             f"runner {runner_preds}")
+    del runner
+    torch.cuda.empty_cache()
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"data cli: phase wall time {report['phase_s']:.1f} s [{card}]")
+    return launches, report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2219,6 +2467,7 @@ def main() -> int:
         train_launches, train_report = train(dev, card, tmp)
         train_report["families"] = train_families(dev, card, tmp)
         rest_launches, train_report["rest"] = train_rest(dev, card, tmp)
+    cli_launches, train_report["data_cli"] = data_cli(dev, card)
 
     csrc = "multimodalemotionrecognition_torch/kernels/csrc/"
     ops = "multimodalemotionrecognition_tpu/ops/"
@@ -2271,6 +2520,11 @@ def main() -> int:
         entry["launches_train_rest"] = rest_launches[entry["name"]]
         if entry["launches_train_rest"] < 1:
             raise AssertionError(f"{entry['name']} was not launched on phase 10's path")
+    # ... and the flagship's run through `train` on a generated corpus (phase 11).
+    for entry in (kernels[0], kernels[1], kernels[4]):
+        entry["launches_train_cli"] = cli_launches[entry["name"]]
+        if entry["launches_train_cli"] < 1:
+            raise AssertionError(f"{entry['name']} was not launched on phase 11's path")
     kernels[0]["train_shapes"] = k1_train
     kernels[1]["train_shapes"] = {f"{name}_b16": rep for name, rep in k3_train.items()}
     kernels[4]["variants"] = k2

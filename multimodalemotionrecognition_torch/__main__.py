@@ -1,14 +1,17 @@
 """Command hub: python -m multimodalemotionrecognition_torch <command> ...
 
+  train               src/train.py (on the card)
+  eval                src/eval.py (on the card)
+  qa-export           src/export_augmented_examples.py
   serve-direct        backend/app/main.py (one clip per request)
   serve-queued        src/inference_server.py with the in-process batcher
   redis-worker        src/inference_worker.py (serving across hosts)
   convert-pretrained  raw torchvision/HF state dict -> branch checkpoint
   convert             inspect a reference-format .pt checkpoint
+  make-data           synthetic RAVDESS-style corpus
 
-Not ported yet (exit code 2): train and eval (ROADMAP queue 1, item 5),
-export (item 7), qa-export and make-data (item 4), build-native (item 4,
-the libav loader).
+Not ported yet (exit code 2): export (ROADMAP queue 1, item 7) and
+build-native (item 4, the libav loader).
 """
 
 from __future__ import annotations
@@ -16,11 +19,7 @@ from __future__ import annotations
 import sys
 
 _NOT_PORTED = {
-    "train": "ROADMAP queue 1, item 5 (train/cli.py)",
-    "eval": "ROADMAP queue 1, item 5 (train/eval.py)",
     "export": "ROADMAP queue 1, item 7 (runtime/export.py)",
-    "qa-export": "ROADMAP queue 1, item 4 (data/qa_export.py)",
-    "make-data": "ROADMAP queue 1, item 4 (data/synthetic.py)",
     "build-native": "ROADMAP queue 1, item 4 (the native libav loader)",
 }
 
@@ -52,7 +51,15 @@ def main(argv=None) -> None:
         print(f"{command}: not ported to the PyTorch package yet; see {_NOT_PORTED[command]}",
               file=sys.stderr)
         raise SystemExit(2)
-    if command == "serve-direct":
+    if command == "train":
+        from multimodalemotionrecognition_torch.train.cli import main as fn
+    elif command == "eval":
+        from multimodalemotionrecognition_torch.train.eval import main as fn
+    elif command == "qa-export":
+        from multimodalemotionrecognition_torch.data.qa_export import main as fn
+    elif command == "make-data":
+        from multimodalemotionrecognition_torch.data.synthetic import main as fn
+    elif command == "serve-direct":
         from multimodalemotionrecognition_torch.serving.server_direct import main as fn
     elif command == "serve-queued":
         from multimodalemotionrecognition_torch.serving.server_queued import main as fn

@@ -3,6 +3,8 @@ without one) and prints one JSON line that names the card.
 
     python -m multimodalemotionrecognition_torch.bench.attn_tile   # K6 per batch tile, beside K1
     python -m multimodalemotionrecognition_torch.bench.forward     # flagship forward, clips/min
+    python -m multimodalemotionrecognition_torch.bench.convergence_gate  # test accuracy after training
+                                                                         # (--device cpu: on the CPU)
 """
 
 from __future__ import annotations

@@ -4,9 +4,9 @@ The port's own copy of what it uses from the JAX package's `config` module:
 `ModelConfig`, `TrainConfig`, `ServeConfig`, `labels_for` and the ImageNet
 constants, with the same field names, defaults and environment variables, so
 a checkpoint's config dict builds either package's model.
-`AudioConfig` and `VideoConfig` (the serving path's preprocessing constants)
-are copied too. `ServeConfig.make_mesh` (it builds a JAX device mesh) is left
-out; `DataConfig` comes with the data slice.
+`AudioConfig`, `VideoConfig` (the preprocessing constants) and `DataConfig`
+(the dataset, its splits and its loaders) are copied too.
+`ServeConfig.make_mesh` (it builds a JAX device mesh) is left out.
 `WavLMConfig` is copied from the JAX package's `models/wavlm.py`: a
 checkpoint's `wavlm_geometry` dict builds either package's model.
 """
@@ -19,6 +19,7 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 __all__ = [
     "AudioConfig",
+    "DataConfig",
     "EMOTION_LABELS_4",
     "EMOTION_LABELS_8",
     "IMAGENET_MEAN",
@@ -206,6 +207,26 @@ class VideoConfig:
     size: int = 112
     face_crop: bool = True
     face_pad_ratio: float = 0.3
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    data_root: str = "data"
+    num_classes: int = 8
+    split_mode: str = "stratified"  # "actor" | "stratified"
+    train_actors: Tuple[int, ...] = tuple(range(1, 19))
+    val_actors: Tuple[int, ...] = (19, 20, 21)
+    test_actors: Tuple[int, ...] = (22, 23, 24)
+    train_ratio: float = 0.7
+    val_ratio: float = 0.15
+    seed: int = 42
+    vocal_channel: int = 1
+    use_wavlm: bool = False
+    train_augment: bool = True
+    use_face_crop: bool = True
+    noise_wav: str = "data/Noise/noise.wav"
+    audio: AudioConfig = dataclasses.field(default_factory=AudioConfig)
+    video: VideoConfig = dataclasses.field(default_factory=VideoConfig)
 
 
 @dataclasses.dataclass(frozen=True)

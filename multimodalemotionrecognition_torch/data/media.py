@@ -1,23 +1,28 @@
-"""Host-side media decode for the serving path.
+"""Host-side media decode and the training augmentations.
 
-Counterpart of the JAX package's `data/media.py`, with the functions that
-serving reads (reference `src/data/ravdess.py:280-578`,
-`backend/app/preprocess.py`):
+Counterpart of the JAX package's `data/media.py` (reference
+`src/data/ravdess.py:280-578`, `backend/app/preprocess.py`):
 
   * audio: scipy WAV decode + polyphase resample to 16 kHz mono (librosa's
-    load contract: float32 in [-1, 1]), head-crop/zero-pad to 3 s;
+    load contract: float32 in [-1, 1]), head-crop/zero-pad to 3 s, and the
+    SNR noise curriculum (50% clean / 40% @ {20,15,10} dB / 10% @ 5 dB) on
+    the bar-noise bank, or Gaussian noise when the bank is absent;
   * video: OpenCV decode (FFMPEG backend) with uniform frame sampling,
     first-frame face detection + bbox reuse, 30%-padded crop, bilinear
-    resize, ImageNet normalisation or the uint8 wire.
+    resize, the reference's low-light augmentation, and ImageNet
+    normalisation or the uint8 wire.
 
-What waits for the data slice (ROADMAP queue 1, item 4) raises instead of
-running: the training augmentations (`augment=True`: the low-light video
-tail and the bar-noise curriculum), and audio from a non-WAV container
-(`.mp4`, `.webm`), which the JAX package decodes through its native libav
-loader.  A file whose bytes are a RIFF/WAVE container is decoded as WAV
-whatever its name, as libav would (the direct app stores uploads as
-`.webm`).  The port has no native decoder, so video always takes the cv2
-path (the JAX package's `EMO_NATIVE_DECODE=0`).
+Each augmentation draws from the caller's `RandomState` in the JAX
+package's order (video: factor, noise sigma, kernel size; audio: level,
+SNR, offset), so one seed gives one augmentation on either wire and in
+either package.
+
+Audio from a non-WAV container (`.mp4`, `.webm`), which the JAX package
+decodes through its native libav loader, raises.  A file whose bytes are a
+RIFF/WAVE container is decoded as WAV whatever its name, as libav would
+(the direct app stores uploads as `.webm`).  The port has no native
+decoder, so video always takes the cv2 path (the JAX package's
+`EMO_NATIVE_DECODE=0`).
 """
 
 from __future__ import annotations
@@ -25,25 +30,51 @@ from __future__ import annotations
 import io
 from math import gcd
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
 from multimodalemotionrecognition_torch.config import IMAGENET_MEAN, IMAGENET_STD
 from multimodalemotionrecognition_torch.data.face import crop_with_padding, get_face_detector
 from multimodalemotionrecognition_torch.ops.image import uniform_frame_indices
+from multimodalemotionrecognition_torch.ops.mel import log_mel_spectrogram_np
 
 __all__ = [
+    "augment_video_frames",
     "decode_video_frames_u8",
     "decode_wav_bytes",
     "load_audio_file",
+    "load_audio_mel",
     "load_audio_wav",
+    "load_noise_bank",
     "load_video_frames",
     "load_video_frames_u8",
+    "mix_bar_noise",
     "resample_waveform",
 ]
 
-_DATA_SLICE = "is not ported yet (ROADMAP queue 1, item 4: the data slice)"
+_noise_cache: dict = {}
+
+
+def load_noise_bank(
+    noise_path: Path | str = Path("data") / "Noise" / "noise.wav",
+    sample_rate: int = 16000,
+) -> Optional[np.ndarray]:
+    """Cached bar-noise waveform (reference `_load_bar_noise`,
+    `src/data/ravdess.py:18-39`). None when the asset is absent or cannot
+    be read."""
+    key = (str(noise_path), sample_rate)
+    if key in _noise_cache:
+        return _noise_cache[key]
+    p = Path(noise_path)
+    wav = None
+    if p.exists():
+        try:
+            wav = load_audio_file(p, sample_rate)
+        except (OSError, ValueError, RuntimeError):
+            wav = None
+    _noise_cache[key] = wav
+    return wav
 
 
 def decode_wav_bytes(data: bytes) -> Tuple[np.ndarray, int]:
@@ -97,8 +128,49 @@ def _decode_container_audio(path: Path) -> Tuple[np.ndarray, int]:
     not copied."""
     raise RuntimeError(
         f"Cannot decode audio from {path.suffix} container: the native libav loader "
-        f"{_DATA_SLICE}; upload a .wav file"
+        "is not ported yet (ROADMAP queue 1, item 4); upload a .wav file"
     )
+
+
+def mix_bar_noise(
+    wav: np.ndarray,
+    noise: Optional[np.ndarray],
+    rng: np.random.RandomState | np.random.Generator | None = None,
+) -> np.ndarray:
+    """Train-time noise curriculum, exact reference protocol
+    (`src/data/ravdess.py:417-476`): 50% clean; else SNR in {20,15,10} (40%)
+    or 5 dB (10%); random noise offset with repeat-if-short; power-matched
+    scale; Gaussian fallback when no noise bank; clamp [-1, 1]."""
+    r = rng or np.random
+    level = float(r.uniform(0.0, 1.0))
+    if level < 0.5:
+        return wav
+    if level < 0.9:
+        snr_db = float(r.choice([20.0, 15.0, 10.0]))
+    else:
+        snr_db = 5.0
+
+    target_len = wav.shape[-1]
+    power_sig = float(np.mean(wav**2))
+    snr_linear = 10.0 ** (snr_db / 10.0)
+    power_noise_target = power_sig / max(snr_linear, 1e-8)
+
+    if noise is not None:
+        bank = noise
+        if bank.shape[-1] < target_len:
+            reps = target_len // bank.shape[-1] + 1
+            bank = np.tile(bank, reps)
+        max_start = max(0, bank.shape[-1] - target_len)
+        start = int(r.randint(0, max_start + 1)) if max_start > 0 else 0
+        seg = bank[start : start + target_len]
+        power_seg = float(np.mean(seg**2))
+        if power_seg > 1e-8:
+            seg = seg * np.sqrt(power_noise_target / power_seg)
+        out = wav + seg
+    else:
+        gauss = r.normal(0.0, np.sqrt(power_noise_target), wav.shape).astype(np.float32)
+        out = wav + gauss
+    return np.clip(out, -1.0, 1.0).astype(np.float32)
 
 
 def load_audio_wav(
@@ -106,18 +178,72 @@ def load_audio_wav(
     sample_rate: int = 16000,
     duration_sec: float = 3.0,
     augment: bool = False,
+    noise_bank: Optional[np.ndarray] = None,
+    rng=None,
 ) -> np.ndarray:
     """Raw waveform [1, target_len] (reference `load_audio_wav`,
-    `src/data/ravdess.py:488-578`): head-crop long audio, zero-pad short."""
-    if augment:
-        raise NotImplementedError(f"load_audio_wav(augment=True): the noise curriculum {_DATA_SLICE}")
+    `src/data/ravdess.py:488-578`): head-crop long audio, zero-pad short;
+    with `augment`, the noise curriculum on `noise_bank` (default: the
+    cached bank, Gaussian noise without one)."""
     wav = load_audio_file(audio_path, sample_rate)
     target_len = int(sample_rate * duration_sec)
     if wav.shape[-1] < target_len:
         wav = np.pad(wav, (0, target_len - wav.shape[-1]))
     else:
         wav = wav[:target_len]
+    if augment:
+        bank = noise_bank if noise_bank is not None else load_noise_bank(sample_rate=sample_rate)
+        wav = mix_bar_noise(wav, bank, rng=rng)
     return wav[None, :].astype(np.float32)
+
+
+def load_audio_mel(
+    audio_path: Path | str,
+    sample_rate: int = 16000,
+    duration_sec: float = 3.0,
+    n_mels: int = 64,
+    win_length: int = 400,
+    hop_length: int = 160,
+    augment: bool = False,
+    noise_bank: Optional[np.ndarray] = None,
+    rng=None,
+) -> np.ndarray:
+    """Log-mel [1, n_mels, frames] (reference `load_audio_mel`,
+    `src/data/ravdess.py:393-485`) on the host, through the numpy twin of
+    the mel front end; the trainer and the runner make it on the device."""
+    wav = load_audio_wav(
+        audio_path,
+        sample_rate=sample_rate,
+        duration_sec=duration_sec,
+        augment=augment,
+        noise_bank=noise_bank,
+        rng=rng,
+    )
+    return log_mel_spectrogram_np(
+        wav, sample_rate=sample_rate, win_length=win_length, hop_length=hop_length, n_mels=n_mels,
+    )
+
+
+def augment_video_frames(frames01: np.ndarray, rng=None) -> np.ndarray:
+    """Low-light venue augmentation on [T, H, W, 3] float in [0,1]
+    (reference `src/data/ravdess.py:366-384`): Gaussian blur k in {3,5,7},
+    brightness x U(0.2, 0.6), Gaussian noise sigma ~ U(0, 5e-4), clip."""
+    import cv2
+
+    r = rng or np.random
+    factor = float(r.uniform(0.2, 0.6))
+    noise_scale = float(r.uniform(0.0, 0.0005))
+    ksize = int(r.choice([3, 5, 7]))
+    out = np.empty_like(frames01)
+    for i in range(frames01.shape[0]):
+        img = (frames01[i] * 255.0).astype(np.uint8)
+        img = cv2.GaussianBlur(img, (ksize, ksize), 0)
+        img = img.astype(np.float32) / 255.0
+        img = img * factor
+        if noise_scale > 0:
+            img = img + r.normal(0, noise_scale, img.shape).astype(np.float32)
+        out[i] = np.clip(img, 0.0, 1.0)
+    return out
 
 
 def decode_video_frames_u8(
@@ -179,14 +305,16 @@ def load_video_frames(
     augment: bool = False,
     use_face_crop: bool = True,
     bbox=None,
+    rng=None,
     normalize: bool = True,
 ) -> np.ndarray:
     """Decode + preprocess video to float32 [T, 3, size, size]
     (reference `load_video_frames`, `src/data/ravdess.py:280-390`):
-    `decode_video_frames_u8` then /255 and ImageNet normalisation."""
-    if augment:
-        raise NotImplementedError(f"load_video_frames(augment=True): the augmentation {_DATA_SLICE}")
+    `decode_video_frames_u8` then /255, the train-time augmentation and
+    ImageNet normalisation on the host."""
     arr = decode_video_frames_u8(video_path, num_frames, size, use_face_crop, bbox).astype(np.float32) / 255.0
+    if augment:
+        arr = augment_video_frames(arr, rng=rng)
     if normalize:
         mean = np.asarray(IMAGENET_MEAN, dtype=np.float32)
         std = np.asarray(IMAGENET_STD, dtype=np.float32)
@@ -201,11 +329,28 @@ def load_video_frames_u8(
     augment: bool = False,
     use_face_crop: bool = True,
     bbox=None,
+    rng=None,
 ) -> Tuple[np.ndarray, float, float]:
-    """uint8 wire: (frames_u8 [T, 3, size, size], brightness factor 1.0,
-    noise sigma 0.0), the eval path of the JAX function (the runner then
-    normalises on the device)."""
-    if augment:
-        raise NotImplementedError(f"load_video_frames_u8(augment=True): the augmentation {_DATA_SLICE}")
+    """uint8 wire: (frames_u8 [T, 3, size, size], brightness factor, noise
+    sigma), 4x less host->device traffic than the float path.
+
+    The reference augmentation round-trips each frame through uint8 for
+    the blur, so the blurred uint8 frames carry the whole augmented signal;
+    the rest (brightness x factor, + Gaussian noise, clip, normalise) is
+    replayed on the device by the trainer (`EmotionTrainer._device_video`).
+    The draws from `rng` come in `augment_video_frames`' order (factor,
+    sigma, kernel size).  factor 1.0 and sigma 0.0 without `augment`."""
     u8 = decode_video_frames_u8(video_path, num_frames, size, use_face_crop, bbox)
-    return u8.transpose(0, 3, 1, 2), 1.0, 0.0
+    factor, sigma = 1.0, 0.0
+    if augment:
+        import cv2
+
+        r = rng or np.random
+        factor = float(r.uniform(0.2, 0.6))
+        sigma = float(r.uniform(0.0, 0.0005))
+        ksize = int(r.choice([3, 5, 7]))
+        # (u8 / 255 * 255).astype(uint8) == u8 for all 256 values, so
+        # blurring the decoded uint8 frames is byte-identical to the blur
+        # stage of `augment_video_frames`.
+        u8 = np.stack([cv2.GaussianBlur(u8[i], (ksize, ksize), 0) for i in range(u8.shape[0])])
+    return u8.transpose(0, 3, 1, 2), factor, sigma

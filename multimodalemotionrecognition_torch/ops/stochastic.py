@@ -4,8 +4,10 @@ Counterpart of the JAX package's `ops/stochastic.py`, behavioural (not
 bitwise) equivalents of its draws: `drop_path` (StochasticDepth, reference
 `src/models/fusion.py:11-26`), `modality_dropout_mask` (batch-level modality
 zeroing, `:29-55`), and `dropout`, which stands for Flax's `nn.Dropout`
-(`F.dropout` takes no generator), and `spec_augment` (SpecAugment masks,
-`src/models/audio.py:10-52`).  `mix_noise_snr` comes with the data pipeline.
+(`F.dropout` takes no generator), `spec_augment` (SpecAugment masks,
+`src/models/audio.py:10-52`) and `mix_noise_snr` (the noise curriculum on
+the device, `src/data/ravdess.py:417-476`; the data pipeline mixes on the
+host, `data/media.py::mix_bar_noise`).
 
 `RngStreams` stands for the JAX trainer's named PRNG streams: one seeded
 generator per name on the compute device, and a host twin for the draws
@@ -20,7 +22,8 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = [
-    "RNG_STREAMS", "RngStreams", "drop_path", "dropout", "modality_dropout_mask", "spec_augment",
+    "RNG_STREAMS", "RngStreams", "drop_path", "dropout", "mix_noise_snr", "modality_dropout_mask",
+    "spec_augment",
 ]
 
 RNG_STREAMS = (
@@ -147,3 +150,47 @@ def spec_augment(
             t_start = randint((t - t_len).clamp_min(1))
             keep &= ~((time_ids >= t_start) & (time_ids < t_start + t_len))
     return torch.where(apply & ~keep, torch.zeros((), dtype=x.dtype, device=device), x)
+
+
+def mix_noise_snr(
+    generator: Optional[torch.Generator],
+    wav: torch.Tensor,
+    noise_bank: torch.Tensor,
+    clean_prob: float = 0.5,
+    heavy_prob: float = 0.1,
+    light_snrs: Tuple[float, ...] = (20.0, 15.0, 10.0),
+    heavy_snr: float = 5.0,
+) -> torch.Tensor:
+    """Noise-curriculum mixing for one waveform [T] with a noise bank [N >= T].
+
+    Reference semantics (`src/data/ravdess.py:417-476`): 50% clean; 40% light
+    noise at SNR in {20, 15, 10} dB; 10% heavy at 5 dB. The noise segment
+    starts at a random offset, is power-scaled so SNR = 10*log10(P_sig /
+    P_noise), mixed in the time domain, and the result clamped to [-1, 1].
+    Three draws from `generator` on the waveform's device, in the JAX
+    function's order (level, light SNR, offset); nothing waits for the host."""
+    t = wav.shape[-1]
+    if noise_bank.shape[-1] < t:
+        raise ValueError(f"noise bank of {noise_bank.shape[-1]} samples for a {t}-sample waveform")
+    device = wav.device
+    level = torch.rand((), generator=generator, device=device)
+    snr_index = torch.randint(0, len(light_snrs), (), generator=generator, device=device)
+    start = torch.randint(0, noise_bank.shape[-1] - t + 1, (), generator=generator, device=device)
+    return _mix_noise_snr(wav, noise_bank, level, snr_index, start, clean_prob, heavy_prob,
+                          light_snrs, heavy_snr)
+
+
+def _mix_noise_snr(wav, noise_bank, level, snr_index, start, clean_prob, heavy_prob, light_snrs,
+                   heavy_snr) -> torch.Tensor:
+    """`mix_noise_snr` at given draws (0-d tensors on the waveform's device)."""
+    device = wav.device
+    snr_light = torch.tensor(light_snrs, dtype=wav.dtype, device=device)[snr_index]
+    snr_db = torch.where(level < 1.0 - heavy_prob, snr_light, torch.full_like(snr_light, heavy_snr))
+    seg = noise_bank[..., start + torch.arange(wav.shape[-1], device=device)]
+    power_sig = (wav**2).mean()
+    power_target = power_sig / torch.clamp_min(10.0 ** (snr_db / 10.0), 1e-8)
+    power_seg = (seg**2).mean()
+    scale = torch.sqrt(power_target / power_seg.clamp_min(1e-8))
+    scale = torch.where(power_seg > 1e-8, scale, torch.zeros_like(scale))
+    noisy = (wav + seg * scale).clamp(-1.0, 1.0)
+    return torch.where(level < clean_prob, wav, noisy)

@@ -47,9 +47,10 @@ the test confusion matrix (`confusion_matrix.csv`, and a PNG when matplotlib
 imports); resume checkpoints (`save_resume_state` / `restore_resume_state`:
 one `torch.save` file where the JAX trainer writes an orbax tree).
 
-Not ported yet: W&B logging (`TrainConfig.wandb`), the CLI and the data
-pipeline that feeds `fit` (ROADMAP queue 1, "`data/`" and "`train/eval.py`,
-`train/cli.py`").
+`fit` takes any loaders whose batches carry numpy `video`, `audio`,
+`labels`, `valid`, `aug` and `size`: `data/pipeline.py::build_loaders`
+makes them from a RAVDESS-style directory, and `train/cli.py` drives the
+whole run from the command line (W&B logging there, through `log_fn`).
 """
 
 from __future__ import annotations

@@ -935,6 +935,54 @@ def test_trainer_warm_start_then_step(cuda, tmp_path):
     assert got == want, (got, want, runs)
 
 
+# A 2-layer WavLM with the base model's seven conv layers, at narrow widths.
+SMALL_WAVLM = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=4, intermediate_size=64,
+                   conv_dim=(16,) * 7, num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
+# abs. Without augmentation both wires give the same frames (the device's
+# /255 and normalisation are the host's float32 operations). With it, the
+# frame noise (sigma <= 5e-4) is drawn on the device for the uint8 wire, and
+# the float wire's frame noise consumes the per-sample RandomState before the
+# audio's noise draws, so the audio augmentation is another draw too (as in
+# the JAX package): the losses then agree as two draws of one distribution.
+WIRE_LOSS_TOL = {False: 1e-5, True: 0.25}
+
+
+@pytest.mark.parametrize("augment", [False, True])
+def test_trainer_epoch_from_the_loaders_on_either_video_wire(cuda, tmp_path, monkeypatch, augment):
+    """One stage-1 epoch of the flagship at a small WavLM through
+    `build_loaders`, on the uint8 wire (the augmentation's tail replayed on
+    the card) against the float32 wire, through the kernels."""
+    import numpy as np
+
+    from multimodalemotionrecognition_torch.config import DataConfig, ModelConfig, TrainConfig, VideoConfig
+    from multimodalemotionrecognition_torch.data.pipeline import build_loaders
+    from multimodalemotionrecognition_torch.data.synthetic import generate_synthetic_ravdess
+    from multimodalemotionrecognition_torch.train import EmotionTrainer
+
+    generate_synthetic_ravdess(tmp_path / "corpus", actors=(1, 2), emotions=(3, 5), seconds=0.5,
+                               size=64, seed=3, clips_per_pair=2)
+    monkeypatch.chdir(tmp_path)
+    dc = DataConfig(data_root=str(tmp_path / "corpus"), split_mode="actor", train_actors=(1, 2),
+                    val_actors=(), test_actors=(), video=VideoConfig(num_frames=2, size=32),
+                    use_face_crop=False, train_augment=augment)
+    losses, launches = {}, {}
+    for wire in ("float32", "uint8"):
+        train, _, _ = build_loaders(dc, 4, num_workers=2, wire=wire)
+        trainer = EmotionTrainer(
+            ModelConfig(fusion="xattn", use_wavlm=True, xattn_d_model=32, wavlm_geometry=SMALL_WAVLM),
+            TrainConfig(two_stage_training=True, seed=0, output_dir=str(tmp_path)), device=cuda)
+        state = trainer.init_state()
+        before = wavlm_attention_sublayer.launches, fused_conv_layer.launches
+        _, metrics = trainer.run_epoch(state, train, True, trainer.trainable_mask(1),
+                                       trainer.lr_tree(1, {}))
+        launches[wire] = (wavlm_attention_sublayer.launches - before[0],
+                          fused_conv_layer.launches - before[1])
+        losses[wire] = metrics["loss"]
+    assert all(map(np.isfinite, losses.values())), losses
+    assert abs(losses["uint8"] - losses["float32"]) <= WIRE_LOSS_TOL[augment], losses
+    assert all(k1 >= 1 and k3 == 12 for k1, k3 in launches.values()), launches  # 2 steps x 6
+
+
 # ---------------------------------------------------------------------------
 # the serving stack: the dynamic batcher over the kernels' runner
 # ---------------------------------------------------------------------------

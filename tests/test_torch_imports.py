@@ -39,7 +39,9 @@ def test_port_imports_no_jax_or_flax():
                    "__main__", "data", "data.face", "data.haar", "data.media", "utils.profiling",
                    "serving", "serving.preprocess", "serving.predictor", "serving.batcher",
                    "serving.streaming", "serving.http", "serving.server_direct",
-                   "serving.server_queued", "serving.redis_transport"):
+                   "serving.server_queued", "serving.redis_transport", "data.ravdess",
+                   "data.pipeline", "data.synthetic", "data.qa_export", "train.cli", "train.eval",
+                   "bench.convergence_gate"):
         assert f"multimodalemotionrecognition_torch.{module}" in report["modules"]
     assert report["heavy"] == []
     # Not even the JAX package's framework-free modules: the port has its own config.

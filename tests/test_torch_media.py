@@ -87,15 +87,21 @@ def test_a_wav_under_another_name_is_read_as_wav(tmp_path):
 
 
 def test_container_audio_and_augmentation_raise(tmp_path):
+    """Container audio raises (the libav loader is not ported), with or
+    without augmentation; the augmented video loaders run, equal to JAX's."""
     vid = tmp_path / "clip.mp4"
     _write_video(vid, _synthetic_face_video(n=4))
-    with pytest.raises(RuntimeError, match="ROADMAP queue 1, item 4"):
-        media.load_audio_wav(vid)
+    for augment in (False, True):
+        with pytest.raises(RuntimeError, match="ROADMAP queue 1, item 4"):
+            media.load_audio_wav(vid, augment=augment)
     with pytest.raises(RuntimeError):  # the JAX package without its libav loader
         jax_media.load_audio_wav(vid)
-    for fn in (media.load_audio_wav, media.load_video_frames, media.load_video_frames_u8):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            fn(vid, augment=True)
+    for fn, jax_fn in ((media.load_video_frames, jax_media.load_video_frames),
+                       (media.load_video_frames_u8, jax_media.load_video_frames_u8)):
+        got = fn(vid, augment=True, rng=np.random.RandomState(0))
+        want = jax_fn(vid, augment=True, rng=np.random.RandomState(0))
+        np.testing.assert_array_equal(got[0] if isinstance(got, tuple) else got,
+                                      want[0] if isinstance(want, tuple) else want)
 
 
 @pytest.mark.parametrize("total, num", [(0, 8), (3, 8), (8, 8), (20, 8), (97, 8), (5, 1)])

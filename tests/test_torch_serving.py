@@ -532,7 +532,7 @@ def test_apps_raise_without_their_checkpoint_or_card(ckpt, tmp_path):  # noqa: F
 # --------------------------------------------------------------------------- the hub
 
 
-@pytest.mark.parametrize("command", ["train", "eval", "export", "qa-export", "make-data", "build-native"])
+@pytest.mark.parametrize("command", ["export", "build-native"])
 def test_hub_refuses_what_is_not_ported(command, capsys):
     with pytest.raises(SystemExit) as e:
         hub.main([command, "--anything"])
