@@ -4,9 +4,11 @@ serve the flagship model at full width through `TorchModelRunner` and the
 serving stack (dynamic batcher, HTTP apps, WebSocket streaming), run the
 measurement entry points, serve the other model families, train the
 flagship through `EmotionTrainer` (with gradient accumulation, the alignment
-loss, the branch warm start, resume and the test confusion matrix), and
-train from a generated corpus through the data pipeline and the `train`,
-`eval` and convergence-gate entry points.
+loss, the branch warm start, resume and the test confusion matrix), train
+from a generated corpus through the data pipeline and the `train`, `eval`
+and convergence-gate entry points, export the flagship with `torch.export`
+and serve it from the artifact, and crop faces with the BlazeFace detector
+in front of a flagship forward.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
@@ -162,6 +164,10 @@ Phases (the first failure ends the run with a non-zero exit code):
                uint8 wire): its JSON line, the decode threads and CPUs, the
                train loader's median wait per batch beside the median host
                step; the run fails below 0.70 actor-held-out test accuracy;
+               (b') the gate's trained checkpoint exported with `--int8`
+               (buckets 1 and 8): its accuracy on the held-out actor's 32
+               clips (decoded at 8 frames of 112 px, the export's input)
+               beside the float32 runner's on the same clips;
                (c) the flagship two-stage (1 + 1 epochs, batch 16, 8 frames of
                112 px, face crop, float32) through `train.cli.main`: losses,
                accuracies, epoch times, loader waits, every K1, K2 and K3
@@ -170,12 +176,38 @@ Phases (the first failure ends the run with a non-zero exit code):
                checkpoint: accuracy equal to a float32 `TorchModelRunner` on
                the same 8 test clips, the same argmax on each.
 
+  12. export - the flagship checkpoint (as phase 4 writes it) through
+               `python -m multimodalemotionrecognition_torch export
+               --batch-sizes 1,8`, plain and with `--int8`: each bucket's
+               graph holds exactly 12 K1 and 6 K3 operator nodes; a fresh
+               process that imports only the port loads the artifact and
+               answers 1, 8 and 11 clips (11: two forwards of the 8 bucket)
+               with exactly 12 K1 and 6 K3 launches per forward; its
+               probabilities within 1e-5 of `TorchModelRunner` on the same
+               checkpoint and inputs; b1 and b8 latency of the exported
+               program and the runner (CUDA events, 8 alternating pairs) in
+               that fresh process and in this one, from host arrays and from
+               inputs on the card (here also with the cyclic collector
+               paused); one b8 forward of each under `device_trace`, whose
+               Chrome traces must name K1's and K3's kernels.
+  13. blazeface - the bundled detector on the 24 held-out scenes of
+               `make_scene(default_rng(4242), p_face=1.0)`, on the CPU and on
+               the card: each finds >= 0.8 of the faces at mean IoU >= 0.5,
+               the two devices' boxes within 1 px, ms per frame on each; then
+               with EMO_FACE_DETECTOR=blazeface the preprocessing service's
+               crops of a cv2-written .mp4 (one scene at 256 px, 16 frames)
+               equal `crop_with_padding` on the detector's own box, and the
+               clip through the float32 flagship runner with exactly 12 K1
+               and 6 K3 launches.
+
 The line before the last two is the JSON kernel report; then the card's
 line; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import re
 import sys
@@ -2327,6 +2359,7 @@ def _data_cli(dev, card, tmp):
           f"[{card}]")
     if not (gate["pass"] and gate["value"] >= GATE_TARGET and gate["backend"] == "cuda"):
         raise AssertionError(f"data cli gate: {gate}")
+    report["gate_int8"] = _gate_int8(dev, card, tmp, gate)
 
     # (c) the flagship through `train` at full width (face crop on, f32):
     # counters from 0, every kernel launch of the run held against the
@@ -2392,6 +2425,415 @@ def _data_cli(dev, card, tmp):
     torch.cuda.empty_cache()
     report["phase_s"] = time.perf_counter() - t_phase
     print(f"data cli: phase wall time {report['phase_s']:.1f} s [{card}]")
+    return launches, report
+
+
+def _gate_int8(dev, card, tmp, gate):
+    """(b') The gate's trained checkpoint exported with `--int8` against the
+    float32 runner on the gate's held-out actor (8): accuracy of each on the
+    same 32 clips, decoded at the export's input (8 frames of 112 px; the
+    gate trained at 4 of 64, so both read the clips at another scale)."""
+    from multimodalemotionrecognition_torch.config import DataConfig, VideoConfig
+    from multimodalemotionrecognition_torch.data.pipeline import build_loaders
+    from multimodalemotionrecognition_torch.ops.mel import log_mel_spectrogram
+    from multimodalemotionrecognition_torch.runtime import export
+    from multimodalemotionrecognition_torch.runtime.runner import TorchModelRunner
+
+    ckpt = tmp / "gate" / "outputs" / "best_gated.pt"
+    artifact = export.main(["--checkpoint", str(ckpt), "--output", str(tmp / "gate_int8"),
+                            "--int8", "--batch-sizes", "1,8"], device=dev)
+    exported = export.load_exported(artifact)
+    runner = TorchModelRunner(ckpt, device=dev, compute_dtype="float32")
+    dc = DataConfig(data_root=str(tmp / "gate"), split_mode="actor", train_actors=(),
+                    val_actors=(), test_actors=(8,), use_face_crop=False,
+                    video=VideoConfig(num_frames=8, size=112))
+    int8_runner = TorchModelRunner(ckpt, device=dev, compute_dtype="float32", quantize_int8=True)
+    # The int8 and float32 runners at the gate's own input (4 frames of 64 px).
+    native = {"int8_runner": [], "float32_runner": []}
+    native_labels = []
+    for batch in build_loaders(dataclasses.replace(dc, video=VideoConfig(num_frames=4, size=64)),
+                               16)[2]:
+        valid = batch.valid
+        with torch.no_grad():
+            mel = log_mel_spectrogram(torch.from_numpy(batch.audio[valid][:, 0]).to(dev))
+        mel = mel[:, None].cpu().numpy()
+        for name, r in (("int8_runner", int8_runner), ("float32_runner", runner)):
+            native[name].append(r.predict_probs(batch.video[valid], mel).argmax(axis=1))
+        native_labels.append(batch.labels[valid])
+    native_labels = np.concatenate(native_labels)
+    at_64 = {name: float((np.concatenate(p) == native_labels).mean()) for name, p in native.items()}
+    at_64["agree"] = float(np.mean(np.concatenate(native["int8_runner"])
+                                   == np.concatenate(native["float32_runner"])))
+    print(f"data cli gate int8: at the gate's input (4 frames of 64 px) the int8 runner "
+          f"{at_64['int8_runner']:.4f}, the float32 runner {at_64['float32_runner']:.4f} on "
+          f"{native_labels.size} clips, the same argmax on {at_64['agree']:.4f} [{card}]")
+    preds = {"int8_export": [], "float32_runner": []}
+    labels = []
+    for batch in build_loaders(dc, 16)[2]:
+        valid = batch.valid
+        with torch.no_grad():
+            mel = log_mel_spectrogram(torch.from_numpy(batch.audio[valid][:, 0]).to(dev))
+        mel = mel[:, None].cpu().numpy()
+        preds["int8_export"].append(exported.predict_probs(batch.video[valid], mel).argmax(axis=1))
+        preds["float32_runner"].append(runner.predict_probs(batch.video[valid], mel).argmax(axis=1))
+        labels.append(batch.labels[valid])
+    labels = np.concatenate(labels)
+    out = {name: float((np.concatenate(p) == labels).mean()) for name, p in preds.items()}
+    out["agree"] = float(np.mean(np.concatenate(preds["int8_export"])
+                                 == np.concatenate(preds["float32_runner"])))
+    out["clips"] = int(labels.size)
+    out["at_4x64"] = at_64
+    print(f"data cli gate int8: actor-held-out test accuracy of the --int8 export "
+          f"{out['int8_export']:.4f}, the float32 runner {out['float32_runner']:.4f} on the same "
+          f"{labels.size} clips (8 frames of 112 px), the same argmax on {out['agree']:.4f} of them; "
+          f"the gate's own reading at 4 frames of 64 px {gate['value']} [{card}]")
+    if labels.size != 32 or native_labels.size != 32:
+        raise AssertionError(f"data cli gate int8: {labels.size}, {native_labels.size} test clips")
+    del runner, int8_runner, exported
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------- phase 12: export
+
+EXPORT_TOL = 1e-5  # abs, probabilities: the exported program against TorchModelRunner
+# Run in a fresh interpreter that imports only the port: load an artifact,
+# answer 1, 8 and 11 clips, count the kernels' launches per request.
+_FRESH_LOAD = r"""
+import json, sys
+import numpy as np, torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from multimodalemotionrecognition_torch.runtime.export import load_exported
+from multimodalemotionrecognition_torch.kernels import fused_conv_layer, wavlm_attention_sublayer
+artifact, inputs, out, ckpt = sys.argv[1:5]
+exported = load_exported(artifact)
+data = np.load(inputs)
+video, audio = data["video"], data["audio"]
+probs, launches = {}, {}
+for n in (1, 8, 11):
+    wavlm_attention_sublayer.launches = fused_conv_layer.launches = 0
+    probs[str(n)] = exported.predict_probs(video[:n], audio[:n])
+    torch.cuda.synchronize()
+    launches[str(n)] = [wavlm_attention_sublayer.launches, fused_conv_layer.launches]
+np.savez(out, **probs)
+heavy = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "multimodalemotionrecognition_tpu"))
+# Latency in this short process beside a runner of the same checkpoint, as
+# phase 12 reads it in the long one: from host arrays, and from inputs on the card.
+from chip_smoke import _latency_pairs
+from multimodalemotionrecognition_torch.runtime.runner import TorchModelRunner
+runner = TorchModelRunner(ckpt, device="cuda", quantize_int8=exported.meta["quantized_int8"])
+staged = {n: (torch.from_numpy(video[:n]).cuda(), torch.from_numpy(audio[:n]).cuda()) for n in (1, 8)}
+def on_card(fn, n):
+    def call(v, a):
+        with torch.inference_mode():
+            return fn(*staged[n]).cpu()
+    return call
+latency = {f"b{n}": _latency_pairs({"runner": runner.predict_probs, "exported": exported.predict_probs},
+                                   video, audio, n) for n in (1, 8)}
+latency["on_card"] = {f"b{n}": _latency_pairs({"runner_on_card": on_card(runner._forward, n),
+                                               "exported_on_card": on_card(exported._fns[n], n)},
+                                              video, audio, n) for n in (1, 8)}
+print(json.dumps({"launches": launches, "device": str(exported.device), "buckets": exported._buckets,
+                  "heavy": heavy, "latency": latency}))
+"""
+
+
+def _trace_kernels(path: Path) -> list:
+    """(name, device ms) of each kernel in a Chrome trace of `device_trace`."""
+    events = json.loads(path.read_text())["traceEvents"]
+    return [(e["name"], e.get("dur", 0.0) / 1e3) for e in events if e.get("cat") == "kernel"]
+
+
+def _latency_pairs(fns: dict, video, audio, n: int, pairs: int = 8) -> dict:
+    """Median ms of one `predict_probs` of n clips per callable, CUDA events
+    around each call; the callables take turns, in an order that reverses
+    each pair."""
+    samples = {name: [] for name in fns}
+    for fn in fns.values():
+        fn(video[:n], audio[:n])
+    for i in range(pairs):
+        for name in (list(fns) if i % 2 == 0 else reversed(list(fns))):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns[name](video[:n], audio[:n])
+            end.record()
+            torch.cuda.synchronize()
+            samples[name].append(start.elapsed_time(end))
+    return {name: float(np.median(ms)) for name, ms in samples.items()}
+
+
+def export_phase(dev, card, ckpt, tmp):
+    """Phase 12 -> (launches of the exported programs' forwards in the fresh
+    processes, report)."""
+    import subprocess
+
+    from multimodalemotionrecognition_torch.kernels import (
+        fused_conv_layer,
+        wavlm_attention_sublayer,
+    )
+    from multimodalemotionrecognition_torch.runtime.export import kernel_nodes, load_exported
+    from multimodalemotionrecognition_torch.runtime.runner import TorchModelRunner
+    from multimodalemotionrecognition_torch.utils.profiling import device_trace
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(SEED + 12)
+    video = rng.randn(11, 8, 3, 112, 112).astype(np.float32)
+    audio = (rng.randn(11, 1, 48000) * 0.1).astype(np.float32)
+    inputs = tmp / "export_inputs.npz"
+    np.savez(inputs, video=video, audio=audio)
+    report = {"card": card}
+    launches = {"wavlm_attention_sublayer": 0, "fused_conv_layer": 0}
+    for label, flags in (("float32", []), ("int8", ["--int8"])):
+        out = tmp / f"flagship_{label}"
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "multimodalemotionrecognition_torch", "export",
+                        "--checkpoint", str(ckpt), "--output", str(out), "--batch-sizes", "1,8",
+                        *flags], cwd=REPO, check=True)
+        export_s = time.perf_counter() - t0
+        artifact = Path(str(out) + ".npz")
+        meta = json.loads(Path(str(artifact) + ".meta.json").read_text())
+        exported = load_exported(artifact)
+        nodes = {b: kernel_nodes(program) for b, program in exported.programs.items()}
+        print(f"export {label}: {artifact.stat().st_size / 2**20:.1f} MiB in {export_s:.1f} s "
+              f"(a process through the hub), meta {meta['format']} on {meta['device']}, "
+              f"int8 {meta['quantized_int8']}; kernel operator nodes per bucket {nodes}")
+        want_nodes = {"emo.wavlm_attention_sublayer": 12, "emo.fused_conv_layer": 6}
+        if sorted(nodes) != [1, 8] or any(n != want_nodes for n in nodes.values()):
+            raise AssertionError(f"export {label}: graph nodes {nodes}, expected {want_nodes}")
+
+        # A fresh process that imports only the port loads and serves it.
+        t0 = time.perf_counter()
+        probs_path = tmp / f"export_probs_{label}.npz"
+        proc = subprocess.run([sys.executable, "-c", _FRESH_LOAD, str(artifact), str(inputs),
+                               str(probs_path), str(ckpt)], cwd=REPO, capture_output=True, text=True)
+        if proc.returncode:
+            raise AssertionError(f"export {label}: the fresh process failed:\n{proc.stderr[-4000:]}")
+        fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+        fresh_s = time.perf_counter() - t0
+        want_launches = {"1": [12, 6], "8": [12, 6], "11": [24, 12]}  # 11 = 8 + 3 padded to 8
+        print(f"export {label}: fresh process {fresh_s:.1f} s on {fresh['device']}, buckets "
+              f"{fresh['buckets']}, launches (K1, K3) per request {fresh['launches']}, expected "
+              f"{want_launches}; modules of jax / the JAX package loaded: {fresh['heavy']}")
+        if fresh["launches"] != want_launches or fresh["heavy"] or fresh["device"] != "cuda":
+            raise AssertionError(f"export {label}: {fresh}")
+        print(f"export {label}: latency ms in the fresh process (CUDA events, 8 alternating pairs, "
+              f"median) {fresh['latency']} [{card}]")
+        for n in (1, 8, 11):
+            launches["wavlm_attention_sublayer"] += fresh["launches"][str(n)][0]
+            launches["fused_conv_layer"] += fresh["launches"][str(n)][1]
+
+        runner = TorchModelRunner(ckpt, device=dev, quantize_int8=bool(flags))
+        errors = {}
+        with np.load(probs_path) as got:
+            for n in (1, 8, 11):
+                want = runner.predict_probs(video[:n], audio[:n])
+                if got[str(n)].shape != want.shape or not np.isfinite(got[str(n)]).all():
+                    raise AssertionError(f"export {label} n={n}: {got[str(n)].shape}")
+                errors[n] = float(np.abs(got[str(n)] - want).max())
+        print(f"export {label}: max |exported - TorchModelRunner| by request size {errors} "
+              f"(tol {EXPORT_TOL})")
+        if not max(errors.values()) <= EXPORT_TOL:
+            raise AssertionError(f"export {label}: {errors}")
+
+        # Latency in this process: the runner and the exported program in
+        # turns, from host arrays; then from inputs already on the card (the
+        # graph's share), and both again with Python's cyclic collector
+        # paused (a long process holds many objects).
+        fns = {"runner": runner.predict_probs, "exported": exported.predict_probs}
+        latency = {f"b{n}": _latency_pairs(fns, video, audio, n) for n in (1, 8)}
+        print(f"export {label}: latency ms (CUDA events, 8 alternating pairs, median) "
+              f"{latency} [{card}]")
+        staged = {n: (torch.from_numpy(video[:n]).to(dev), torch.from_numpy(audio[:n]).to(dev))
+                  for n in (1, 8)}
+
+        def on_card(fn, n):
+            def call(v, a):
+                with torch.inference_mode():
+                    return fn(*staged[n]).cpu()
+            return call
+
+        for paused in (False, True):
+            if paused:
+                gc.disable()
+            try:
+                split = {f"b{n}": _latency_pairs(
+                    {"runner_on_card": on_card(runner._forward, n),
+                     "exported_on_card": on_card(exported._fns[n], n)}, video, audio, n)
+                    for n in (1, 8)}
+            finally:
+                gc.enable()
+            print(f"export {label}: latency ms from inputs on the card"
+                  f"{' with the cyclic collector paused' if paused else ''} {split} "
+                  f"({len(gc.get_objects())} objects tracked) [{card}]")
+            latency["on_card_gc_paused" if paused else "on_card"] = split
+        report[label] = {"export_s": export_s, "fresh_s": fresh_s, "mib": artifact.stat().st_size
+                         / 2**20, "nodes": nodes[8], "fresh_launches": fresh["launches"],
+                         "max_abs_err": errors, "latency_ms": latency,
+                         "latency_ms_fresh_process": fresh["latency"]}
+
+        if label == "float32":
+            # One b8 forward of each under `device_trace`: the exported
+            # program's trace names K1's and K3's kernels; the device's busy
+            # time beside the runner's (the tracer now and then records no
+            # device event: up to three windows).
+            want = ROUTE_KERNELS["K1"][torch.float32] + ROUTE_KERNELS["K3"][torch.float32]
+            for name, fn in fns.items():
+                for _ in range(3):
+                    wavlm_attention_sublayer.launches = fused_conv_layer.launches = 0
+                    with device_trace(str(tmp / "trace")) as trace:
+                        fn(video[:8], audio[:8])
+                    kernels = _trace_kernels(trace)
+                    if kernels:
+                        break
+                names = {k for k, _ in kernels}
+                seen = {w: any(w in k for k in names) for w in want}
+                busy = sum(ms for _, ms in kernels)
+                print(f"export trace of the {name}'s b8 forward: {trace.name} "
+                      f"{trace.stat().st_size / 2**20:.1f} MiB, {len(kernels)} kernel launches "
+                      f"busy {busy:.2f} ms, route kernels seen {seen}; launches K1 "
+                      f"{wavlm_attention_sublayer.launches} K3 {fused_conv_layer.launches} [{card}]")
+                if not all(seen.values()) or (wavlm_attention_sublayer.launches,
+                                              fused_conv_layer.launches) != (12, 6):
+                    raise AssertionError(f"export trace: {seen}, {sorted(names)[:20]}")
+                report[f"trace_{name}"] = {"kernel_launches": len(kernels), "busy_ms": busy}
+        del runner, exported
+        torch.cuda.empty_cache()
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"export: phase wall time {report['phase_s']:.1f} s [{card}]")
+    return launches, report
+
+
+# --------------------------------------------------------------------------- phase 13: BlazeFace
+
+FACE_SCENES = 24  # held-out scenes, `tests/test_blazeface.py`'s bar
+
+
+def _bbox_iou(a, b) -> float:
+    """IoU of two (x, y, w, h) pixel boxes."""
+    x0, y0 = max(a[0], b[0]), max(a[1], b[1])
+    x1, y1 = min(a[0] + a[2], b[0] + b[2]), min(a[1] + a[3], b[1] + b[3])
+    inter = max(0, x1 - x0) * max(0, y1 - y0)
+    return inter / float(a[2] * a[3] + b[2] * b[3] - inter)
+
+
+def blazeface_phase(dev, card, ckpt, tmp):
+    """Phase 13 -> (launches of the flagship forward on the cropped clip, report)."""
+    import os
+
+    import cv2
+
+    from multimodalemotionrecognition_torch.config import IMAGENET_MEAN, IMAGENET_STD
+    from multimodalemotionrecognition_torch.data import face
+    from multimodalemotionrecognition_torch.data.synthface import make_scene
+    from multimodalemotionrecognition_torch.kernels import (
+        fused_conv_layer,
+        wavlm_attention_sublayer,
+    )
+    from multimodalemotionrecognition_torch.ops.image import uniform_frame_indices
+    from multimodalemotionrecognition_torch.runtime.runner import TorchModelRunner
+    from multimodalemotionrecognition_torch.serving.preprocess import EmotionPreprocessService
+
+    t_phase = time.perf_counter()
+    report = {"card": card}
+    rng = np.random.default_rng(4242)
+    scenes = [make_scene(rng, p_face=1.0) for _ in range(FACE_SCENES)]
+    boxes = {}
+    for name, device in (("cpu", "cpu"), ("cuda", dev)):
+        detector = face.BlazeFaceDetector(face.BUNDLED_BLAZEFACE_WEIGHTS, device=device)
+        detector.detect_face_bbox(scenes[0][0])  # warm-up (cuDNN's choice on the card)
+        t0 = time.perf_counter()
+        boxes[name] = [detector.detect_face_bbox(img) for img, _ in scenes]
+        frame_ms = (time.perf_counter() - t0) * 1e3 / FACE_SCENES
+        ious = [_bbox_iou(got, truth) for got, (_, truth) in zip(boxes[name], scenes) if got]
+        found = len(ious) / FACE_SCENES
+        report[name] = {"found": found, "mean_iou": float(np.mean(ious)), "frame_ms": frame_ms}
+        print(f"blazeface {name}: found {found:.3f} of {FACE_SCENES} held-out faces, mean IoU "
+              f"{np.mean(ious):.4f}; {frame_ms:.2f} ms per frame (resize, forward, decode, NMS) "
+              f"[{card}]")
+        if not (found >= 0.8 and np.mean(ious) >= 0.5):
+            raise AssertionError(f"blazeface {name}: {report[name]}")
+    apart = max((max(abs(a - b) for a, b in zip(x, y)) for x, y in zip(boxes["cpu"], boxes["cuda"])
+                 if x and y), default=0)
+    same_found = [bool(x) for x in boxes["cpu"]] == [bool(y) for y in boxes["cuda"]]
+    report["card_vs_cpu_px"] = apart
+    print(f"blazeface: card against CPU boxes at most {apart} px apart, the same faces found "
+          f"{same_found}")
+    if apart > 1 or not same_found:
+        raise AssertionError(f"blazeface: card and CPU boxes differ: {boxes}")
+
+    # The preprocessing service's face crop with EMO_FACE_DETECTOR=blazeface
+    # on a cv2-written clip: the first held-out scene whose face the CPU
+    # found at IoU >= 0.5, at 256 px, 16 frames.
+    img, truth = next(scene for got, scene in zip(boxes["cpu"], scenes)
+                      if got and _bbox_iou(got, scene[1]) >= 0.5)
+    frames = [np.clip(cv2.resize(img, (256, 256), interpolation=cv2.INTER_LINEAR).astype(np.int16)
+                      + rng.integers(-3, 4, (256, 256, 3)), 0, 255).astype(np.uint8)
+              for _ in range(16)]
+    path = tmp / "face_clip.mp4"
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 10, (256, 256))
+    for frame in frames:
+        writer.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
+    writer.release()
+    saved = os.environ.get("EMO_FACE_DETECTOR")
+    os.environ["EMO_FACE_DETECTOR"] = "blazeface"
+    face.set_face_detector(None)
+    face._detector_initialized = False
+    try:
+        service = EmotionPreprocessService()
+        t0 = time.perf_counter()
+        clip = service.load_video_frames(path)
+        clip_ms = (time.perf_counter() - t0) * 1e3
+        detector = face.get_face_detector()
+    finally:
+        if saved is None:
+            os.environ.pop("EMO_FACE_DETECTOR", None)
+        else:
+            os.environ["EMO_FACE_DETECTOR"] = saved
+        face.set_face_detector(None)
+        face._detector_initialized = False
+    cap = cv2.VideoCapture(str(path))
+    decoded = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        decoded.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+    cap.release()
+    sampled = [decoded[i] for i in uniform_frame_indices(len(decoded), 8)]
+    bbox = detector.detect_face_bbox(sampled[0])
+    if not isinstance(detector, face.BlazeFaceDetector) or bbox is None:
+        raise AssertionError(f"blazeface clip: detector {type(detector).__name__}, bbox {bbox}")
+    want = np.stack([cv2.resize(face.crop_with_padding(f, bbox, 0.3), (112, 112),
+                                interpolation=cv2.INTER_LINEAR) for f in sampled])
+    want = ((want.astype(np.float32) / 255.0 - np.asarray(IMAGENET_MEAN, np.float32))
+            / np.asarray(IMAGENET_STD, np.float32)).transpose(0, 3, 1, 2)
+    scale = 256 / 128
+    iou = _bbox_iou(bbox, tuple(v * scale for v in truth))
+    print(f"blazeface clip: {len(decoded)} frames decoded, the service's {clip.shape} crops in "
+          f"{clip_ms:.1f} ms, box {bbox} on the first sampled frame (IoU {iou:.3f} with the "
+          f"scene's face), crops equal to crop_with_padding on it: {np.array_equal(clip, want)}")
+    if not np.array_equal(clip, want):
+        raise AssertionError("blazeface clip: the service's crops differ from the detector's box")
+
+    # The cropped clip through the flagship on the card.
+    runner = TorchModelRunner(ckpt, device=dev, compute_dtype="float32")
+    wav = (np.random.RandomState(SEED + 13).randn(1, 1, 48000) * 0.1).astype(np.float32)
+    runner.predict_probs(clip[None], wav)
+    wavlm_attention_sublayer.launches = fused_conv_layer.launches = 0
+    probs = runner.predict_probs(clip[None], wav)
+    torch.cuda.synchronize()
+    launches = {"wavlm_attention_sublayer": wavlm_attention_sublayer.launches,
+                "fused_conv_layer": fused_conv_layer.launches}
+    print(f"blazeface clip through the flagship: probs {np.round(probs[0], 4).tolist()}, "
+          f"launches {launches}")
+    if launches != {"wavlm_attention_sublayer": 12, "fused_conv_layer": 6} or not (
+            np.isfinite(probs).all() and abs(probs.sum() - 1.0) < 1e-4):
+        raise AssertionError(f"blazeface clip: {launches}, {probs}")
+    report.update(clip_ms=clip_ms, clip_iou=iou, phase_s=time.perf_counter() - t_phase)
+    del runner
+    torch.cuda.empty_cache()
+    print(f"blazeface: phase wall time {report['phase_s']:.1f} s [{card}]")
     return launches, report
 
 
@@ -2468,6 +2910,11 @@ def main() -> int:
         train_report["families"] = train_families(dev, card, tmp)
         rest_launches, train_report["rest"] = train_rest(dev, card, tmp)
     cli_launches, train_report["data_cli"] = data_cli(dev, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "flagship.pt"
+        make_checkpoint(ckpt)
+        export_launches, export_report = export_phase(dev, card, ckpt, Path(tmp))
+        face_launches, face_report = blazeface_phase(dev, card, ckpt, Path(tmp))
 
     csrc = "multimodalemotionrecognition_torch/kernels/csrc/"
     ops = "multimodalemotionrecognition_tpu/ops/"
@@ -2525,6 +2972,13 @@ def main() -> int:
         entry["launches_train_cli"] = cli_launches[entry["name"]]
         if entry["launches_train_cli"] < 1:
             raise AssertionError(f"{entry['name']} was not launched on phase 11's path")
+    # ... and the exported programs' forwards in fresh processes (phase 12),
+    # and the flagship forward on the BlazeFace crop (phase 13).
+    for entry in kernels[:2]:
+        entry["launches_export"] = export_launches[entry["name"]]
+        entry["launches_face_crop"] = face_launches[entry["name"]]
+        if entry["launches_export"] < 1 or entry["launches_face_crop"] < 1:
+            raise AssertionError(f"{entry['name']} was not launched on phase 12's or 13's path")
     kernels[0]["train_shapes"] = k1_train
     kernels[1]["train_shapes"] = {f"{name}_b16": rep for name, rep in k3_train.items()}
     kernels[4]["variants"] = k2
@@ -2539,7 +2993,7 @@ def main() -> int:
             raise AssertionError(f"{entry['name']} was not launched on the serve stack's path")
     print(json.dumps({"kernels": kernels, "serve": perf, "serve_stack": stack_report,
                       "families": family_perf, "bench": bench_report, "train": train_report,
-                      "card": card}))
+                      "export": export_report, "blazeface": face_report, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

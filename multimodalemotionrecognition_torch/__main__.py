@@ -9,9 +9,10 @@
   convert-pretrained  raw torchvision/HF state dict -> branch checkpoint
   convert             inspect a reference-format .pt checkpoint
   make-data           synthetic RAVDESS-style corpus
+  export              src/export_optimized_model.py: torch.export artifact + meta.json (on the card)
 
-Not ported yet (exit code 2): export (ROADMAP queue 1, item 7) and
-build-native (item 4, the libav loader).
+Not ported yet (exit code 2): build-native (ROADMAP queue 1, item 4, the
+libav loader).
 """
 
 from __future__ import annotations
@@ -19,7 +20,6 @@ from __future__ import annotations
 import sys
 
 _NOT_PORTED = {
-    "export": "ROADMAP queue 1, item 7 (runtime/export.py)",
     "build-native": "ROADMAP queue 1, item 4 (the native libav loader)",
 }
 
@@ -67,6 +67,8 @@ def main(argv=None) -> None:
         from multimodalemotionrecognition_torch.serving.redis_transport import main as fn
     elif command == "convert-pretrained":
         from multimodalemotionrecognition_torch.convert.pretrained import main as fn
+    elif command == "export":
+        from multimodalemotionrecognition_torch.runtime.export import main as fn
     elif command == "convert":
         fn = _convert
     else:

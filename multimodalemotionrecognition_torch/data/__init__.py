@@ -1,9 +1,11 @@
 """Host-side data: RAVDESS pairing and splits, media decode with the face
-crop and the training augmentations, the synthetic corpus and the
-prefetching loaders (the port's copies of the JAX package's `data/`
+crop and the training augmentations, the synthetic corpus, the synthetic face
+scenes and the prefetching loaders (the port's copies of the JAX package's `data/`
 modules; the native libav loader is not copied)."""
 
 from multimodalemotionrecognition_torch.data.face import (
+    BUNDLED_BLAZEFACE_WEIGHTS,
+    BlazeFaceDetector,
     HaarFaceDetector,
     HeuristicFaceDetector,
     crop_with_padding,
@@ -32,6 +34,8 @@ from multimodalemotionrecognition_torch.data.ravdess import (
 )
 
 __all__ = [
+    "BUNDLED_BLAZEFACE_WEIGHTS",
+    "BlazeFaceDetector",
     "EMOTION_ID_TO_NAME",
     "HaarFaceDetector",
     "HeuristicFaceDetector",

@@ -14,11 +14,16 @@ Detectors:
     (`EMO_FACE_DETECTOR=haar`), through `cv2.CascadeClassifier` where the
     binding has it, else the numpy evaluator of `data/haar.py`.
 
-The learned BlazeFace detector (`EMO_FACE_DETECTOR=blazeface`,
-`EMO_BLAZEFACE_WEIGHTS`) is not ported yet (ROADMAP queue 1, item 8): asking
-for it raises `NotImplementedError` instead of serving another detector.  A
-`haar` request with no cascade file raises too (the JAX package takes the
-heuristic then).
+  * `BlazeFaceDetector` - the learned short-range BlazeFace
+    (`models/blazeface.py`), `EMO_FACE_DETECTOR=blazeface` or
+    `EMO_BLAZEFACE_WEIGHTS=<file.npz>|bundled`; `bundled` (and `blazeface`
+    with no weights named) is the synthetically pretrained
+    `assets/blazeface_synth.npz` (`BUNDLED_BLAZEFACE_WEIGHTS`).
+
+Nothing degrades quietly: a `haar` request with no cascade file, a
+BlazeFace weights path that does not exist, and a `BlazeFaceDetector`
+without weights raise (the JAX package takes the heuristic detector, or a
+disabled one, there).
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ from xml.etree.ElementTree import ParseError as ET_ParseError
 import numpy as np
 
 __all__ = [
+    "BUNDLED_BLAZEFACE_WEIGHTS",
+    "BlazeFaceDetector",
     "FaceDetector",
     "HaarFaceDetector",
     "HeuristicFaceDetector",
@@ -42,6 +49,10 @@ __all__ = [
 ]
 
 Bbox = Tuple[int, int, int, int]  # x, y, w, h in pixels
+
+# Synthetically pretrained short-range BlazeFace, a byte-identical copy of
+# the JAX package's asset (trained there by tools/train_blazeface_synth.py).
+BUNDLED_BLAZEFACE_WEIGHTS = Path(__file__).resolve().parent.parent / "assets" / "blazeface_synth.npz"
 
 
 class FaceDetector(Protocol):
@@ -136,6 +147,69 @@ class HeuristicFaceDetector:
         return (int(x0), int(y0), w, h)
 
 
+class BlazeFaceDetector:
+    """Learned BlazeFace detector (the reference's MediaPipe
+    `FaceDetection(min_detection_confidence=0.5)`, `src/utils/face_crop.py:85-90`).
+
+    Runs `models/blazeface.py` on an `.npz` of weights (the bundled file,
+    or one written by `convert/blazeface_export.py`) on `device`.  Face
+    detection is per-clip host preprocessing, so `get_face_detector` makes
+    it on the CPU, as the JAX package pins it to its host backend.  No
+    weights, or a path that does not exist, raise."""
+
+    def __init__(
+        self,
+        weights_path: str | Path,
+        min_score: float = 0.5,
+        iou_threshold: float = 0.3,
+        device: str = "cpu",
+    ):
+        from multimodalemotionrecognition_torch.models import blazeface as bf
+        from multimodalemotionrecognition_torch.utils.device import require_device
+
+        if not weights_path:
+            raise ValueError("BlazeFaceDetector needs a weights file (.npz)")
+        path = Path(weights_path)
+        if not path.exists():
+            raise FileNotFoundError(f"BlazeFace weights not found: {path}")
+        self.min_score = min_score
+        self.iou_threshold = iou_threshold
+        self.device = require_device(device, "BlazeFaceDetector")
+        self.model = bf.load_blazeface(path, self.device)
+        self._anchors = bf.generate_anchors()
+
+    def detect_face_bbox(self, image_rgb: np.ndarray) -> Optional[Bbox]:
+        import cv2
+        import torch
+
+        from multimodalemotionrecognition_torch.models import blazeface as bf
+
+        if image_rgb.ndim != 3 or image_rgb.shape[-1] != 3:
+            return None
+        h, w = image_rgb.shape[:2]
+        size = bf.BLAZEFACE_INPUT_SIZE
+        resized = cv2.resize(_as_uint8(image_rgb), (size, size), interpolation=cv2.INTER_LINEAR)
+        x = resized.astype(np.float32) / 127.5 - 1.0
+        with torch.inference_mode():
+            raw_boxes, scores = self.model(torch.from_numpy(x[None]).to(self.device))
+            raw_boxes, scores = raw_boxes[0].cpu().numpy(), scores[0].cpu().numpy()
+        boxes = bf.decode_boxes_np(raw_boxes, self._anchors)
+        best = bf.weighted_nms_np(boxes, scores, self.min_score, self.iou_threshold)
+        if best is None:
+            return None
+        (y0, x0, y1, x1), _score = best
+        # Normalized [0,1] -> pixel coords of the ORIGINAL frame (plain
+        # resize, so x and y scale independently), clipped like the
+        # reference's legacy branch (`face_crop.py:131-136`).
+        px0 = max(0, int(round(x0 * w)))
+        py0 = max(0, int(round(y0 * h)))
+        px1 = min(w, int(round(x1 * w)))
+        py1 = min(h, int(round(y1 * h)))
+        if px1 - px0 < 2 or py1 - py0 < 2:
+            return None
+        return (px0, py0, px1 - px0, py1 - py0)
+
+
 class HaarFaceDetector:
     """Haar-cascade frontal-face detector over OpenCV's real-face weights.
 
@@ -201,23 +275,28 @@ _detector_initialized = False
 
 def _detector_from_env() -> FaceDetector:
     family = os.environ.get("EMO_FACE_DETECTOR", "")
-    if family == "blazeface" or os.environ.get("EMO_BLAZEFACE_WEIGHTS", ""):
-        raise NotImplementedError(
-            "the BlazeFace detector (EMO_FACE_DETECTOR=blazeface, EMO_BLAZEFACE_WEIGHTS) is not "
-            "ported yet (ROADMAP queue 1, item 8); use EMO_FACE_DETECTOR=heuristic or haar"
-        )
+    weights = os.environ.get("EMO_BLAZEFACE_WEIGHTS", "")
+    if weights == "bundled" or family == "blazeface" and not weights:
+        weights = str(BUNDLED_BLAZEFACE_WEIGHTS)
     if family == "haar":
         haar = HaarFaceDetector()
         if not haar.available:
             raise RuntimeError("EMO_FACE_DETECTOR=haar: no Haar cascade XML was found")
         return haar
+    if family == "heuristic":
+        return HeuristicFaceDetector()
+    if weights:
+        return BlazeFaceDetector(weights, device="cpu")
     return HeuristicFaceDetector()
 
 
 def get_face_detector() -> Optional[FaceDetector]:
-    """Process-wide detector, made once (lock-guarded) from the environment:
-    `EMO_FACE_DETECTOR=haar` selects the Haar cascade, anything else but
-    `blazeface` the heuristic."""
+    """Process-wide detector, made once (lock-guarded) from the environment
+    (the JAX package's selection): `EMO_FACE_DETECTOR=haar` or `heuristic`
+    selects that family; else `EMO_BLAZEFACE_WEIGHTS=<path.npz>` selects the
+    learned detector on those weights, `bundled` (or `EMO_FACE_DETECTOR=
+    blazeface` with no weights named) on the bundled ones; else the
+    heuristic."""
     global _detector, _detector_initialized
     with _detector_lock:
         if not _detector_initialized:

@@ -25,10 +25,13 @@ never read, so the caller pads nothing for the kernel's sake.  The result is
 [B, rows, cout] in y's dtype; rows at or past t_out = (t_in - k) // stride + 1
 are unspecified.
 
-For a CPU tensor the wrapper runs `fused_conv_layer_plain`, the same
-function in plain PyTorch.  For a CUDA tensor it launches one of the three
-kernels or raises.  `fused_conv_layer.launches` counts kernel launches of
-any of them.
+The wrapper validates its arguments and calls the registered operator
+`torch.ops.emo.fused_conv_layer` (a `torch.library.custom_op` with a fake
+implementation), so that `torch.export` records K3 as one node
+(`runtime/export.py`).  For a CPU tensor the operator runs
+`fused_conv_layer_plain`, the same function in plain PyTorch.  For a CUDA
+tensor it launches one of the three kernels or raises.
+`fused_conv_layer.launches` counts kernel launches of any of them.
 
 The kernel has no backward (neither has the TPU kernel): the wrapper raises
 when a gradient is asked through it, so training runs it only on a frozen
@@ -212,14 +215,30 @@ def fused_conv_layer(
             "fused_conv_layer has no backward: freeze the conv feature extractor "
             "(or call it under torch.no_grad()) or use the modular conv path"
         )
-    if y.device.type == "cpu":
-        return fused_conv_layer_plain(
-            y, w_flat, k, stride, cin, gelu_input, gelu_output, t_in
-        )
-    if y.device.type != "cuda":
+    if y.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {y.device}")
+    return _k3_op(y, w_flat, k, stride, cin, gelu_input, gelu_output, t_in, w_split)
 
+
+@torch.library.custom_op("emo::fused_conv_layer", mutates_args=(), device_types="cpu")
+def _k3_op(
+    y: torch.Tensor, w_flat: torch.Tensor, k: int, stride: int, cin: int, gelu_input: bool,
+    gelu_output: bool, t_in: int, w_split: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """K3 as an operator; on the CPU the plain version."""
+    return fused_conv_layer_plain(y, w_flat, k, stride, cin, gelu_input, gelu_output, t_in)
+
+
+@_k3_op.register_fake
+def _k3_fake(y, w_flat, k, stride, cin, gelu_input, gelu_output, t_in, w_split):
+    return y.new_empty(y.shape[0], y.shape[1], w_flat.shape[1])
+
+
+@_k3_op.register_kernel("cuda")
+def _k3_cuda(y, w_flat, k, stride, cin, gelu_input, gelu_output, t_in, w_split):
+    """K3 on the card: one launch of the kernel the arguments route to."""
     lib = load_library()
+    b, rows, _ = y.shape
     cout = w_flat.shape[1]
     out = torch.empty(b, rows, cout, dtype=y.dtype, device=y.device)
     shape = (b, rows, t_in, k, stride, cin, cout)

@@ -38,6 +38,13 @@ bit), seeded by one int32 `dropout_seed` that the caller draws on the host.
 The attention mask's index stride is the padded `Tp`, as in the JAX kernel:
 equal seeds give equal masks only at equal `Tp`.
 
+K1's forward is the registered operator `torch.ops.emo.wavlm_attention_sublayer`
+(a `torch.library.custom_op` with a fake implementation), so that
+`torch.export` records it as one node of the graph (`runtime/export.py`)
+and an exported program launches it; every forward launch, in serving and
+in training, goes through it.  K2 is not an operator: no exported path
+takes a gradient.
+
 For CPU tensors the wrappers run the plain PyTorch versions
 (`wavlm_attention_sublayer_plain`, `wavlm_attention_sublayer_backward_plain`).
 For CUDA tensors they launch the kernels or raise.  Kernel launches are
@@ -381,8 +388,10 @@ def wavlm_attention_sublayer_forward(
     """K1 -> (out, ctx, pre): the sublayer's output and the two buffers K2
     reads, the attention context [B, Tp, E] in the compute dtype and the
     pre-LayerNorm rows in float32 (both None on the CPU, where the plain
-    backward recomputes them).  Not recorded by autograd:
-    `wavlm_attention_sublayer` is the differentiable entry."""
+    backward recomputes them).  Runs the registered operator
+    `torch.ops.emo.wavlm_attention_sublayer`, so `torch.export` records it
+    as one node.  Not recorded by autograd: `wavlm_attention_sublayer` is
+    the differentiable entry."""
     args = (hidden, q, k, v, gate, position_bias, wo, bo, ln_scale, ln_bias)
     for name, rate in (("attn_dropout", attn_dropout), ("hidden_dropout", hidden_dropout)):
         if not 0.0 <= rate < 1.0:
@@ -390,13 +399,46 @@ def wavlm_attention_sublayer_forward(
     if (attn_dropout > 0.0 or hidden_dropout > 0.0) and dropout_seed is None:
         raise ValueError("dropout_seed is required when a dropout rate is above 0")
     _validate(*args, num_heads, seq_len)
-    if hidden.device.type == "cpu":
-        out = wavlm_attention_sublayer_plain(
-            *args, num_heads, seq_len, eps, attn_dropout, hidden_dropout, dropout_seed
-        )
-        return out, None, None
-    if hidden.device.type != "cuda":
+    if hidden.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {hidden.device}")
+    out, ctx, pre = _k1_op(*args, num_heads, seq_len, eps, attn_dropout, hidden_dropout,
+                           dropout_seed)
+    if hidden.device.type == "cpu":
+        return out, None, None
+    return out, ctx, pre
+
+
+@torch.library.custom_op("emo::wavlm_attention_sublayer", mutates_args=(), device_types="cpu")
+def _k1_op(
+    hidden: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    gate: torch.Tensor, position_bias: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
+    ln_scale: torch.Tensor, ln_bias: torch.Tensor, num_heads: int, seq_len: int, eps: float,
+    attn_dropout: float, hidden_dropout: float, dropout_seed: Optional[int],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1 as an operator.  On the CPU the plain version; ctx and pre are
+    empty there (an operator returns tensors, never None)."""
+    out = wavlm_attention_sublayer_plain(
+        hidden, q, k, v, gate, position_bias, wo, bo, ln_scale, ln_bias,
+        num_heads, seq_len, eps, attn_dropout, hidden_dropout, dropout_seed,
+    )
+    return out, hidden.new_empty(0), hidden.new_empty(0, dtype=torch.float32)
+
+
+@_k1_op.register_fake
+def _k1_fake(hidden, q, k, v, gate, position_bias, wo, bo, ln_scale, ln_bias, num_heads,
+             seq_len, eps, attn_dropout, hidden_dropout, dropout_seed):
+    if hidden.device.type == "cpu":
+        return (torch.empty_like(hidden), hidden.new_empty(0),
+                hidden.new_empty(0, dtype=torch.float32))
+    return (torch.empty_like(hidden), torch.empty_like(hidden),
+            torch.empty_like(hidden, dtype=torch.float32))
+
+
+@_k1_op.register_kernel("cuda")
+def _k1_cuda(hidden, q, k, v, gate, position_bias, wo, bo, ln_scale, ln_bias, num_heads,
+             seq_len, eps, attn_dropout, hidden_dropout, dropout_seed):
+    """K1 on the card: one call of the C entry, three launches."""
+    args = (hidden, q, k, v, gate, position_bias, wo, bo, ln_scale, ln_bias)
     b, tp, e = hidden.shape
     dh = e // num_heads
     if e > 1024:
@@ -560,11 +602,14 @@ def wavlm_attention_sublayer(
     dropout_seed: Optional[int] = None,  # int32, required when a rate is above 0
 ) -> torch.Tensor:
     """-> LayerNorm(hidden + dropout(attention @ wo + bo)): [B, Tp, E] in
-    hidden's dtype, differentiable in all ten tensors."""
+    hidden's dtype, differentiable in all ten tensors.  Where autograd
+    records none of them (serving, `torch.export`), the operator is called
+    directly and K2 has nothing to pair with."""
+    tensors = (hidden, q, k, v, gate, position_bias, wo, bo, ln_scale, ln_bias)
     statics = (num_heads, seq_len, eps, attn_dropout, hidden_dropout, dropout_seed)
-    return _Sublayer.apply(
-        hidden, q, k, v, gate, position_bias, wo, bo, ln_scale, ln_bias, statics
-    )
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _Sublayer.apply(*tensors, statics)
+    return wavlm_attention_sublayer_forward(*tensors, *statics)[0]
 
 
 wavlm_attention_sublayer.launches = 0

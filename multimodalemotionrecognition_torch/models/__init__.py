@@ -1,4 +1,5 @@
 from multimodalemotionrecognition_torch.models.audio import AudioCNN, AudioNet, AudioResNet18
+from multimodalemotionrecognition_torch.models.blazeface import BlazeFace
 from multimodalemotionrecognition_torch.models.factory import (
     build_audio_encoder,
     build_model,
@@ -18,6 +19,7 @@ __all__ = [
     "AudioCNN",
     "AudioNet",
     "AudioResNet18",
+    "BlazeFace",
     "ClipStyleAlignment",
     "EmotionPriorBiasAdapter",
     "FusionModel",

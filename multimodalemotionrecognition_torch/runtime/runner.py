@@ -47,6 +47,7 @@ from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from multimodalemotionrecognition_torch.config import (
     IMAGENET_MEAN,
@@ -68,7 +69,7 @@ from multimodalemotionrecognition_torch.runtime.fused import (
 from multimodalemotionrecognition_torch.runtime.quant import quantize_linears_int8
 from multimodalemotionrecognition_torch.utils.device import require_device
 
-__all__ = ["TorchModelRunner"]
+__all__ = ["ProbsForward", "TorchModelRunner"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _FRAMES, _FRAME_SIZE, _SAMPLES, _MEL_FRAMES = 8, 112, 48000, 301
@@ -92,6 +93,45 @@ def _host_audio(audios) -> np.ndarray:
     """int16 PCM stays int16 (dequantised on the device); anything else is float32."""
     audios = np.asarray(audios)
     return audios if audios.dtype == np.int16 else audios.astype(np.float32)
+
+
+class ProbsForward(nn.Module):
+    """The runner's forward as a module that owns the model: the wires
+    (uint8 video normalised, int16 PCM dequantised), the cast to the
+    compute dtype, the model (or K4's fused forward) and the softmax.
+    `runtime/export.py` exports it."""
+
+    def __init__(self, model: nn.Module, fusion_mode: str, dtype: torch.dtype,
+                 fused_forward=None):
+        super().__init__()
+        self.model = model
+        self.fusion_mode = fusion_mode
+        self.dtype = dtype
+        self.fused_forward = fused_forward
+        device = next(model.parameters()).device
+        for name, values in (("mean", IMAGENET_MEAN), ("std", IMAGENET_STD)):
+            self.register_buffer(name, torch.tensor(values, device=device).view(1, 1, 3, 1, 1),
+                                 persistent=False)
+
+    def forward(self, video: torch.Tensor, audio: torch.Tensor) -> torch.Tensor:
+        if audio.dtype == torch.int16:
+            # int16 PCM wire (lossless for 16-bit uploads), dequantised here.
+            audio = audio.float() / 32768.0
+        if video.dtype == torch.uint8:
+            video = (video.float() / 255.0 - self.mean) / self.std
+        video, audio = video.to(self.dtype), audio.to(self.dtype)
+        if self.fused_forward is not None:
+            return self.fused_forward(video, audio)
+        if self.fusion_mode == "audio":
+            out = self.model(audio)
+        elif self.fusion_mode == "video":
+            out = self.model(video)
+        else:
+            out = self.model(video, audio)
+        # Late fusion already returns probabilities (`src/optimized_runtime.py:107`).
+        if self.fusion_mode == "late":
+            return out.float()
+        return torch.softmax(out.float(), dim=1)
 
 
 class TorchModelRunner:
@@ -187,8 +227,8 @@ class TorchModelRunner:
         self._stream = (
             torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
         )
-        self._mean = torch.tensor(IMAGENET_MEAN, device=self.device).view(1, 1, 3, 1, 1)
-        self._std = torch.tensor(IMAGENET_STD, device=self.device).view(1, 1, 3, 1, 1)
+        self.forward_module = ProbsForward(self.model, fusion, self.dtype, self._fused_forward)
+        self._mean, self._std = self.forward_module.mean, self.forward_module.std
 
     # ------------------------------------------------------------------
 
@@ -203,24 +243,7 @@ class TorchModelRunner:
 
     @torch.inference_mode()
     def _forward(self, video: torch.Tensor, audio: torch.Tensor) -> torch.Tensor:
-        if audio.dtype == torch.int16:
-            # int16 PCM wire (lossless for 16-bit uploads), dequantised here.
-            audio = audio.float() / 32768.0
-        if video.dtype == torch.uint8:
-            video = (video.float() / 255.0 - self._mean) / self._std
-        video, audio = video.to(self.dtype), audio.to(self.dtype)
-        if self._fused_forward is not None:
-            return self._fused_forward(video, audio)
-        if self.fusion_mode == "audio":
-            out = self.model(audio)
-        elif self.fusion_mode == "video":
-            out = self.model(video)
-        else:
-            out = self.model(video, audio)
-        # Late fusion already returns probabilities (`src/optimized_runtime.py:107`).
-        if self.fusion_mode == "late":
-            return out.float()
-        return torch.softmax(out.float(), dim=1)
+        return self.forward_module(video, audio)
 
     def _on_stream(self):
         """The runner's stream as the calling thread's current one."""

@@ -1,19 +1,49 @@
-"""Rolling per-stage latencies of the serving batcher.
+"""Tracing helpers: a `torch.profiler` trace around a region, and the
+rolling per-stage latencies of the serving batcher.
 
-Counterpart of the JAX package's `utils/profiling.py::StageTimer`, with the
-same `summary()` keys (read by the queued app's `/metrics`).  The module's
-`device_trace` (a `jax.profiler` trace around a region) waits for its
-`torch.profiler` twin (ROADMAP queue 1, item 8).
+Counterpart of the JAX package's `utils/profiling.py`: `device_trace` (a
+`jax.profiler` trace there, a Chrome trace of `torch.profiler` here) and
+`StageTimer`, with the same `summary()` keys (read by the queued app's
+`/metrics`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import deque
-from typing import Dict, List
+from pathlib import Path
+from typing import Dict, List, Optional
 
-__all__ = ["StageTimer"]
+__all__ = ["StageTimer", "device_trace"]
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: Optional[str]):
+    """Trace a region with `torch.profiler` when `log_dir` is set: host
+    activity, and the card's when CUDA is available.  On exit the trace is
+    written to `log_dir` as a Chrome trace (`trace_<pid>_<ns>.json`, the
+    path the context yields; open it in Perfetto or chrome://tracing).
+    With an empty `log_dir` it does nothing and yields None."""
+    if not log_dir:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    path = Path(log_dir) / f"trace_{os.getpid()}_{time.time_ns()}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        try:
+            yield path
+        finally:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
 
 
 class StageTimer:

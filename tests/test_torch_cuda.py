@@ -1104,3 +1104,65 @@ def test_batcher_bursts_in_a_row_keep_the_staged_copy_ordered(cuda, flagship_ckp
     for payloads, burst in zip(bursts, results):
         got = np.array([r["probs"] for r in burst])
         assert np.abs(got - _direct_probs(runner, payloads)).max() <= SERVE_TOL["float32"]
+
+
+# ---------------------------------------------------------------------------
+# K1 and K3 as registered operators: opcheck on the card, a small export
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_opcheck_kernel_operators_on_the_card(cuda, dtype):
+    """`torch.library.opcheck` runs the CUDA kernels through the dispatcher,
+    the fake implementation and AOT dispatch, and compares their outputs
+    (K1 on its tensor-core route: head width 64; K3 on its tensor-core
+    route: cin a multiple of 64).  Every output row is written: seq_len =
+    Tp for K1, t_out = rows for K3 (rows past those are unspecified)."""
+    from multimodalemotionrecognition_torch.kernels import conv_fe, wavlm_attn
+
+    g = torch.Generator().manual_seed(0)
+    b, t, e, h = 2, 40, 128, 2
+    q, k, v, hidden = (torch.randn(b, t, e, generator=g).to(cuda, dtype) for _ in range(4))
+    args = (hidden, q * 0.125, k, v, torch.randn(b, h * t, 1, generator=g).to(cuda),
+            torch.randn(h * t, t, generator=g).to(cuda),
+            (torch.randn(e, e, generator=g) * 0.05).to(cuda, dtype),
+            torch.randn(1, e, generator=g).to(cuda), torch.ones(1, e, device=cuda),
+            torch.zeros(1, e, device=cuda))
+    before = wavlm_attention_sublayer.launches
+    torch.library.opcheck(wavlm_attn._k1_op, (*args, h, t, 1e-5, 0.0, 0.0, None))
+    assert wavlm_attention_sublayer.launches > before
+    y = torch.randn(2, 16, 2 * 64, generator=g).to(cuda, dtype)  # stride 2, cin 64
+    w_flat = (torch.randn(2 * 64, 64, generator=g) * 0.05).to(cuda, dtype)  # k 2: t_out 16
+    before = fused_conv_layer.launches
+    torch.library.opcheck(conv_fe._k3_op, (y, w_flat, 2, 2, 64, False, True, 32, None))
+    assert fused_conv_layer.launches > before
+
+
+def test_export_on_the_card_launches_the_kernels(cuda, tmp_path):
+    """A small WavLM xattn model exported on the card: 2 K1 and 6 K3
+    operator nodes per graph, and the loaded program launches them and
+    answers as the runner does."""
+    import numpy as np
+
+    from multimodalemotionrecognition_torch.config import ModelConfig
+    from multimodalemotionrecognition_torch.models.factory import build_model
+    from multimodalemotionrecognition_torch.runtime import export
+    from multimodalemotionrecognition_torch.runtime.runner import TorchModelRunner
+
+    cfg = ModelConfig(fusion="xattn", use_wavlm=True, xattn_d_model=32, wavlm_geometry=SMALL_WAVLM)
+    model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    ckpt = tmp_path / "small.pt"
+    torch.save({"model": model.state_dict(), "config": cfg.to_checkpoint_dict()}, ckpt)
+    path = export.export_program(ckpt, tmp_path / "small", batch_sizes=(2,), device=cuda)
+    exported = export.load_exported(path)
+    assert export.kernel_nodes(exported.programs[2]) == {
+        "emo.wavlm_attention_sublayer": 2, "emo.fused_conv_layer": 6}
+    rng = np.random.RandomState(0)
+    video = rng.randn(2, 8, 3, 112, 112).astype(np.float32)
+    audio = (rng.randn(2, 1, 48000) * 0.1).astype(np.float32)
+    before = wavlm_attention_sublayer.launches, fused_conv_layer.launches
+    got = exported.predict_probs(video, audio)
+    assert (wavlm_attention_sublayer.launches - before[0],
+            fused_conv_layer.launches - before[1]) == (2, 6)
+    want = TorchModelRunner(ckpt, device=cuda).predict_probs(video, audio)
+    np.testing.assert_allclose(got, want, atol=1e-5)

@@ -41,7 +41,8 @@ def test_port_imports_no_jax_or_flax():
                    "serving.streaming", "serving.http", "serving.server_direct",
                    "serving.server_queued", "serving.redis_transport", "data.ravdess",
                    "data.pipeline", "data.synthetic", "data.qa_export", "train.cli", "train.eval",
-                   "bench.convergence_gate"):
+                   "bench.convergence_gate", "runtime.export", "models.blazeface",
+                   "convert.blazeface_export", "data.synthface"):
         assert f"multimodalemotionrecognition_torch.{module}" in report["modules"]
     assert report["heavy"] == []
     # Not even the JAX package's framework-free modules: the port has its own config.

@@ -154,15 +154,32 @@ def test_haar_detector_equals_jax():
     assert det.detect_face_bbox(img) == jax_det.detect_face_bbox(img)
 
 
-def test_detector_selection(monkeypatch):
+def test_detector_selection(monkeypatch, tmp_path):
     assert isinstance(face.get_face_detector(), face.HeuristicFaceDetector)
-    for env in ({"EMO_FACE_DETECTOR": "blazeface"}, {"EMO_BLAZEFACE_WEIGHTS": "bundled"}):
+    # The JAX package's selection: the bundled weights for `bundled`, and for
+    # `blazeface` with no weights named; a named file is loaded.
+    named = tmp_path / "named.npz"
+    named.write_bytes(face.BUNDLED_BLAZEFACE_WEIGHTS.read_bytes())
+    for env in ({"EMO_FACE_DETECTOR": "blazeface"}, {"EMO_BLAZEFACE_WEIGHTS": "bundled"},
+                {"EMO_BLAZEFACE_WEIGHTS": str(named)}):
         monkeypatch.setattr(face, "_detector_initialized", False)
+        monkeypatch.setattr(jax_face, "_detector_initialized", False)
         with monkeypatch.context() as m:
             for key, value in env.items():
                 m.setenv(key, value)
-            with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-                face.get_face_detector()
+            det = face.get_face_detector()
+            assert isinstance(det, face.BlazeFaceDetector)
+            assert det.device.type == "cpu"
+            assert isinstance(jax_face.get_face_detector(), jax_face.BlazeFaceDetector)
+    # A weights path that does not exist raises (the JAX package serves the
+    # heuristic), and so does a detector without weights (JAX: disabled).
+    monkeypatch.setattr(face, "_detector_initialized", False)
+    with monkeypatch.context() as m:
+        m.setenv("EMO_BLAZEFACE_WEIGHTS", str(tmp_path / "missing.npz"))
+        with pytest.raises(FileNotFoundError, match="missing.npz"):
+            face.get_face_detector()
+    with pytest.raises(ValueError, match="weights"):
+        face.BlazeFaceDetector(None)
     sentinel = face.HeuristicFaceDetector(min_coverage=0.5)
     face.set_face_detector(sentinel)
     assert face.get_face_detector() is sentinel

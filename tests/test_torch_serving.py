@@ -532,7 +532,7 @@ def test_apps_raise_without_their_checkpoint_or_card(ckpt, tmp_path):  # noqa: F
 # --------------------------------------------------------------------------- the hub
 
 
-@pytest.mark.parametrize("command", ["export", "build-native"])
+@pytest.mark.parametrize("command", ["build-native"])
 def test_hub_refuses_what_is_not_ported(command, capsys):
     with pytest.raises(SystemExit) as e:
         hub.main([command, "--anything"])
@@ -545,6 +545,7 @@ def test_hub_refuses_what_is_not_ported(command, capsys):
     ("serve-queued", "multimodalemotionrecognition_torch.serving.server_queued"),
     ("redis-worker", "multimodalemotionrecognition_torch.serving.redis_transport"),
     ("convert-pretrained", "multimodalemotionrecognition_torch.convert.pretrained"),
+    ("export", "multimodalemotionrecognition_torch.runtime.export"),
 ])
 def test_hub_dispatches_to_the_port(command, module, monkeypatch):
     import importlib
