@@ -199,13 +199,41 @@ Phases (the first failure ends the run with a non-zero exit code):
                equal `crop_with_padding` on the detector's own box, and the
                clip through the float32 flagship runner with exactly 12 K1
                and 6 K3 launches.
+  14. data parallel - two ranks of `torch.distributed` (`parallel.launch`):
+               NCCL over two cards when there are two, else two Gloo ranks
+               on cuda:0 (the line says which).  (a) The flagship's stage-2
+               step at full width, batch 16 (8 a rank), float32 and
+               bfloat16, WavLM's dropouts and LayerDrop on, through
+               `run_epoch` on each rank against one rank on the 16 clips
+               here: both ranks run one rank's `layers_run`, each launches
+               12 K1 less the skips, 6 K3 and one K2 per trainable layer
+               that ran; losses within 1e-5 (bf16 3e-2), every trainable
+               gradient before the optimizer equal on both ranks and within
+               K2's 1e-4 of its largest entry in float32, the ResNet's
+               within 0.1; in bfloat16 within the larger of 3e-2 and twice
+               how far bfloat16 moves that gradient from float32's on one
+               rank, at most 0.5; the BatchNorm statistics within 1e-5
+               (bf16 3e-2) of each largest entry; step times of one rank
+               and of each rank.  (b)
+               `TorchModelRunner(mesh=make_mesh((2, 1), ...))`, the kernels
+               and the fused runner in float32, at 8 clips and at 1 (bucket
+               2), against the single-card runner within 1e-5, with 12 K1 +
+               6 K3 (+ 1 K4) launches per replica forward.  (c)
+               `entry.dryrun_multichip(2)`.  The phase's own seconds.
 
 The line before the last two is the JSON kernel report; then the card's
 line; the last line is {"ok": true, "device": {...}}.
+
+`python3 chip_smoke.py --dp-grad-spread` runs only a diagnostic of phase
+14 (a)'s gradients: one rank twice on identical input, with PyTorch's
+default and its deterministic algorithms, and 2 ranks against 1 with each
+and with the train-mode BatchNorm variance taken in two passes; it writes
+chiprun_out/dp_grad_spread.json.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -2531,7 +2559,7 @@ def on_card(fn, n):
     return call
 latency = {f"b{n}": _latency_pairs({"runner": runner.predict_probs, "exported": exported.predict_probs},
                                    video, audio, n) for n in (1, 8)}
-latency["on_card"] = {f"b{n}": _latency_pairs({"runner_on_card": on_card(runner._forward, n),
+latency["on_card"] = {f"b{n}": _latency_pairs({"runner_on_card": on_card(runner.forward_module, n),
                                                "exported_on_card": on_card(exported._fns[n], n)},
                                               video, audio, n) for n in (1, 8)}
 print(json.dumps({"launches": launches, "device": str(exported.device), "buckets": exported._buckets,
@@ -2658,7 +2686,7 @@ def export_phase(dev, card, ckpt, tmp):
                 gc.disable()
             try:
                 split = {f"b{n}": _latency_pairs(
-                    {"runner_on_card": on_card(runner._forward, n),
+                    {"runner_on_card": on_card(runner.forward_module, n),
                      "exported_on_card": on_card(exported._fns[n], n)}, video, audio, n)
                     for n in (1, 8)}
             finally:
@@ -2837,6 +2865,416 @@ def blazeface_phase(dev, card, ckpt, tmp):
     return launches, report
 
 
+# --------------------------------------------------------------------------- phase 14: data parallel
+
+# 2 ranks against 1 on the same global batch of 16 (8 a rank).  Losses: float32
+# another sum order; bfloat16 the ranks' products round at other batch shapes.
+# Gradients and BatchNorm statistics relative to each tensor's largest entry
+# (floor 1e-6: a gradient that is zero in the math holds rounding noise), the
+# gradients' bound being K2's (GRAD_TOL).
+DP_WORLD = 2
+DP_LOSS_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+DP_STATS_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+DP_PROBS_TOL = 1e-5  # abs, the dp runner against the single-card runner (float32)
+DP_TIMED_STEPS = 3
+# Two bounds are wider than K2's (`--dp-grad-spread` and PERF.md, PR 16): one
+# rank's gradients repeat bit for bit (deterministic algorithms or not), but
+# 2 ranks convolve 8 clips where 1 rank convolves 16, and the train-mode
+# ResNet block 7 turns that other rounding into up to 5.8 % of a leaf's
+# largest entry in float32 (0.4 % in the L2 norm), only part of it from the
+# E[x^2] - E[x]^2 variance.  So in float32 the video tower's leaves
+# (`video_model.`, listed when over GRAD_TOL) are held to DP_VIDEO_CAP,
+# every other leaf to GRAD_TOL.  In bfloat16 the same rounding moves 50 of
+# the 75 leaves past GRAD_TOL, each about as far as bfloat16 moves it from
+# float32's gradient on one rank: each leaf is held to the larger of
+# GRAD_TOL and DP_BF16_MOVE_FACTOR times that move, never above DP_BF16_CAP.
+# A gradient left unreduced or halved misses these by 5x (float32).
+DP_VIDEO_CAP = 0.1
+DP_BF16_MOVE_FACTOR = 2.0
+DP_BF16_CAP = 0.5
+
+
+def _dp_counters():
+    from multimodalemotionrecognition_torch.kernels import (
+        fused_conv_layer,
+        wavlm_attention_sublayer,
+        wavlm_attention_sublayer_backward,
+    )
+
+    return {"wavlm_attention_sublayer": wavlm_attention_sublayer,
+            "fused_conv_layer": fused_conv_layer,
+            "wavlm_attention_sublayer_backward": wavlm_attention_sublayer_backward}
+
+
+def _dp_trainer(dtype, device, world, tmp):
+    from multimodalemotionrecognition_torch.config import ModelConfig, TrainConfig
+    from multimodalemotionrecognition_torch.train import EmotionTrainer
+
+    trainer = EmotionTrainer(
+        ModelConfig(fusion="xattn", use_wavlm=True, compute_dtype=dtype),
+        TrainConfig(two_stage_training=True, seed=SEED, output_dir=str(tmp),
+                    mesh_shape=(world, 1)), device=device)
+    return trainer, trainer.init_state()
+
+
+def _dp_step(trainer, state, batch, grads_out: bool, timed: bool = True) -> dict:
+    """The stage-2 step through `run_epoch` (the stage flip's optimizer
+    reset), its launches counted from 0 and its LayerDrop draw recorded,
+    then (`timed`) DP_TIMED_STEPS more on the same batch for the step time."""
+    counters = _dp_counters()
+    runs = _record_layers_run(state.model)
+    mask, lrs = trainer.trainable_mask(2), trainer.lr_tree(2, {})
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    _, metrics = trainer.run_epoch(state, [batch], True, mask, lrs, reset_opt_first=True)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    trainable = {n for n, on in mask.items() if on}
+    grads = {n: p.grad.detach().float().cpu() for n, p in state.model.named_parameters()
+             if n in trainable and p.grad is not None}
+    out = {
+        "loss": metrics["loss"], "layers_run": runs[0], "launches": launches,
+        "trainable_layers": sorted(i for i in range(12) if mask[
+            f"audio_model.wavlm.encoder.layers.{i}.attention.q_proj.weight"]),
+        "stats": {n: b.detach().float().cpu().numpy() for n, b in state.model.named_buffers()
+                  if "running" in n},
+        # Every rank's gradients are one all-reduce's result: rank 0 sends
+        # them, the others a fingerprint of theirs.
+        "grads": {n: g.numpy() for n, g in grads.items()} if grads_out else None,
+        "grad_fingerprint": {n: (float(g.double().sum()), float(g.double().abs().sum()))
+                             for n, g in grads.items()},
+    }
+    times = []
+    for _ in range(DP_TIMED_STEPS if timed else 0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.run_epoch(state, [batch], True, mask, lrs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["step_ms"] = times
+    return out
+
+
+def _dp_rank_batch(batch, rank, world):
+    rows = slice(rank * TRAIN_BATCH // world, (rank + 1) * TRAIN_BATCH // world)
+    return _Batch(batch.video[rows], batch.audio[rows], batch.labels[rows], batch.aug[rows])
+
+
+def _deterministic(on: bool) -> None:
+    """PyTorch's deterministic algorithms (cuDNN's included) on or off; an op
+    without one warns.  cuBLAS needs CUBLAS_WORKSPACE_CONFIG set before its
+    first call for this."""
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    torch.backends.cudnn.deterministic = on
+    torch.backends.cudnn.benchmark = False
+
+
+class _TwoPassVariance:
+    """Train-mode `EvalBatchNorm2d` with the variance taken as E[(x - mean)^2]
+    (two passes, two all-reduces in a data-parallel step) in place of the
+    port's E[x^2] - E[x]^2 (Flax's `use_fast_variance`), while the block is
+    open: a diagnostic of where the ResNet's gradient spread comes from."""
+
+    def __enter__(self):
+        from multimodalemotionrecognition_torch.models.resnet import EvalBatchNorm2d
+        from multimodalemotionrecognition_torch.parallel.distributed import current_shard
+
+        self._cls, self._forward = EvalBatchNorm2d, EvalBatchNorm2d.forward
+        original = self._forward
+
+        def forward(bn, x, train=False):
+            if not train:
+                return original(bn, x, train)
+            shape, xf, shard = (1, -1, 1, 1), x.float(), current_shard()
+            count = torch.full_like(xf[0, :, 0, 0], xf.numel() // xf.shape[1])
+            sums = shard.sum(torch.stack([xf.sum(dim=(0, 2, 3)), count]))
+            mean = sums[0] / sums[1]
+            centred = xf - mean.view(shape)
+            var = shard.sum((centred * centred).sum(dim=(0, 2, 3))) / sums[1]
+            with torch.no_grad():
+                bn.running_mean.lerp_(mean.to(bn.running_mean.dtype), bn.momentum)
+                bn.running_var.lerp_(var.to(bn.running_var.dtype), bn.momentum)
+                bn.num_batches_tracked += 1
+            mul = torch.rsqrt(var + bn.eps) * bn.weight.float()
+            return (centred * mul.view(shape) + bn.bias.float().view(shape)).to(x.dtype)
+
+        EvalBatchNorm2d.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.forward = self._forward
+
+
+def _dp_rank(rank, world, device, tmp, deterministic=False, timed=True, two_pass=False):
+    """One rank of phase 14 (a): the flagship stage-2 step on its 8 rows, in
+    float32 and bfloat16."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _deterministic(deterministic)
+    batch = _dp_rank_batch(_train_batches(1, SEED + 14)[0], rank, world)
+    out = {}
+    with _TwoPassVariance() if two_pass else contextlib.nullcontext():
+        for dtype in ("float32", "bfloat16"):
+            trainer, state = _dp_trainer(dtype, device, world, tmp)
+            out[dtype] = _dp_step(trainer, state, batch, grads_out=rank == 0, timed=timed)
+            del trainer, state
+            torch.cuda.empty_cache()
+    return out
+
+
+def _grad_scale_leaf(name: str) -> str:
+    """The leaf whose largest gradient entry scales `name`'s bound: itself,
+    but for an attention key projection's bias, whose gradient is zero in
+    exact arithmetic (a bias common to every key leaves the softmax as it
+    is) and so holds rounding noise alone: there its layer's key weight."""
+    if name.endswith("attention.k_proj.bias"):
+        return name[:-len("bias")] + "weight"
+    return name
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| as a share of want's largest entry."""
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-12))
+
+
+def data_parallel(dev, card, tmp):
+    """Phase 14 -> (launch counts of its main paths, report)."""
+    from multimodalemotionrecognition_torch.entry import dryrun_multichip
+    from multimodalemotionrecognition_torch.kernels import fused_block
+    from multimodalemotionrecognition_torch.parallel import launch, make_mesh
+    from multimodalemotionrecognition_torch.runtime.runner import TorchModelRunner
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if cards >= DP_WORLD:
+        backend, devices = "nccl", [torch.device("cuda", i) for i in range(DP_WORLD)]
+    else:  # one card (or a rehearsal on the CPU): every rank on it
+        backend, devices = "gloo", [dev] * DP_WORLD
+    print(f"data parallel: {cards} card(s): {DP_WORLD} ranks over {backend} on "
+          f"{[str(d) for d in devices]} [{card}]")
+    report = {"cards": cards, "backend": backend, "devices": [str(d) for d in devices]}
+    launches = {}
+
+    # (a) The flagship's stage-2 step: one rank on the global batch here, then
+    # DP_WORLD ranks on its rows.
+    batch = _train_batches(1, SEED + 14)[0]
+    one = {}
+    for dtype in ("float32", "bfloat16"):
+        trainer, state = _dp_trainer(dtype, dev, 1, tmp)
+        one[dtype] = _dp_step(trainer, state, batch, grads_out=True)
+        del trainer, state
+        torch.cuda.empty_cache()
+    # How far bfloat16 moves each gradient of one rank from float32's.
+    bf16_move = _grad_errors(one["bfloat16"]["grads"], one["float32"]["grads"])
+    bounds = {
+        "float32": {n: DP_VIDEO_CAP if n.startswith("video_model.") else GRAD_TOL[torch.float32]
+                    for n in bf16_move},
+        "bfloat16": {n: min(DP_BF16_CAP, max(GRAD_TOL[torch.bfloat16], DP_BF16_MOVE_FACTOR * m))
+                     for n, m in bf16_move.items()},
+    }
+    t0 = time.perf_counter()
+    ranks = launch(_dp_rank, DP_WORLD, backend, devices, args=(str(tmp),), timeout_s=600)
+    report["ranks_s"] = time.perf_counter() - t0
+    for dtype in ("float32", "bfloat16"):
+        want = one[dtype]
+        tol = GRAD_TOL[getattr(torch, dtype)]
+        grad_err = {n: float(np.abs(ranks[0][dtype]["grads"][n] - g).max()
+                             / max(np.abs(want["grads"][_grad_scale_leaf(n)]).max(), 1e-6 / tol))
+                    for n, g in want["grads"].items()}
+        stats_err = [max(_rel_err(r[dtype]["stats"][n], s) for n, s in want["stats"].items())
+                     for r in ranks]
+        loss_err = [abs(r[dtype]["loss"] - want["loss"]) for r in ranks]
+        worst = max(grad_err, key=grad_err.get)
+        for r, got in enumerate(ranks):
+            got = got[dtype]
+            ran, trainable = got["layers_run"], set(got["trainable_layers"])
+            expect = {"wavlm_attention_sublayer": len(ran), "fused_conv_layer": 6,
+                      "wavlm_attention_sublayer_backward": len(trainable & set(ran))}
+            print(f"data parallel {dtype} rank {r}: loss {got['loss']:.6f} (1 rank "
+                  f"{want['loss']:.6f}, |diff| {loss_err[r]:.2e}, tol {DP_LOSS_TOL[dtype]}), layers "
+                  f"run {ran} (1 rank {want['layers_run']}), launches {got['launches']}, BatchNorm "
+                  f"statistics within {stats_err[r]:.2e} of each largest entry "
+                  f"(tol {DP_STATS_TOL[dtype]})")
+            if ran != want["layers_run"] or ran[0] != 0 or got["launches"] != expect:
+                raise AssertionError(f"data parallel {dtype} rank {r}: layers run {ran}, launches "
+                                     f"{got['launches']}, expected {expect} and 1 rank's "
+                                     f"{want['layers_run']}")
+            if not (loss_err[r] <= DP_LOSS_TOL[dtype] and stats_err[r] <= DP_STATS_TOL[dtype]):
+                raise AssertionError(f"data parallel {dtype} rank {r}: the loss or the BatchNorm "
+                                     "statistics disagree with one rank")
+            if got["grad_fingerprint"] != ranks[0][dtype]["grad_fingerprint"]:
+                raise AssertionError(f"data parallel {dtype}: rank {r}'s gradients differ from rank 0's")
+            for name, count in got["launches"].items():
+                launches[name] = launches.get(name, 0) + count
+        print(f"data parallel {dtype}: {len(grad_err)} trainable gradients before the optimizer "
+              f"within {grad_err[worst]:.2e} of each largest entry (worst {worst}; tol {tol}); "
+              f"step ms, 1 rank on {TRAIN_BATCH} clips {np.median(want['step_ms']):.1f}, {DP_WORLD} "
+              f"ranks on {TRAIN_BATCH // DP_WORLD} each {[round(float(np.median(r[dtype]['step_ms'])), 1) for r in ranks]} "
+              f"({backend}) [{card}]")
+        bound = bounds[dtype]
+        over = {n: (e, bound[n]) for n, e in grad_err.items() if e > bound[n]}
+        wider = {n: (round(e, 6), round(bound[n], 6)) for n, e in grad_err.items() if e > tol}
+        print(f"data parallel {dtype}: {len(wider)} of {len(grad_err)} leaves over {tol}, held to "
+              f"their own bound (error, bound): {wider}")
+        if set(grad_err) != set(ranks[0][dtype]["grads"]) or over:
+            raise AssertionError(f"data parallel {dtype}: gradients differ from one rank's "
+                                 f"(relative error, bound): {over}")
+        report[dtype] = {
+            "loss_1_rank": want["loss"], "loss_ranks": [r[dtype]["loss"] for r in ranks],
+            "layers_run": want["layers_run"], "launches_per_rank": [r[dtype]["launches"] for r in ranks],
+            "grad_max_rel_err": grad_err[worst], "grad_worst": worst,
+            "grad_rel_err": grad_err, "grad_bound": bound,
+            "stats_max_rel_err": max(stats_err),
+            "step_ms_1_rank": float(np.median(want["step_ms"])),
+            "step_ms_ranks": [float(np.median(r[dtype]["step_ms"])) for r in ranks],
+        }
+    report["bf16_move"] = bf16_move
+    del one, ranks
+
+    # (b) The serving runner on a dp mesh against one card, float32.
+    ckpt = Path(tmp) / "flagship.pt"
+    _, video, audio = make_checkpoint(ckpt)
+    counters = {**_dp_counters(), "fused_block": fused_block}
+    mesh = make_mesh((DP_WORLD, 1), devices=devices)
+    report["runner"] = {}
+    for label, options in (("kernels", {}), ("fused", {"fused": True})):
+        single = TorchModelRunner(ckpt, device=dev, device_normalize=True, **options)
+        dp = TorchModelRunner(ckpt, device=dev, device_normalize=True, mesh=mesh, **options)
+        for n in (8, 1):
+            want = single.predict_probs(video[:n], audio[:n])
+            dp.predict_probs(video[:n], audio[:n])  # warm: cuDNN's choice for the bucket
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            got = dp.predict_probs(video[:n], audio[:n])
+            counted = {name: fn.launches for name, fn in counters.items()}
+            per_replica = {"wavlm_attention_sublayer": 12, "fused_conv_layer": 6,
+                           "wavlm_attention_sublayer_backward": 0,
+                           "fused_block": 1 if options else 0}
+            expect = {name: DP_WORLD * k for name, k in per_replica.items()}
+            err = float(np.abs(got - want).max())
+            print(f"data parallel runner {label} n={n} (bucket {dp.batch_buckets[0] if n == 1 else n}): "
+                  f"{DP_WORLD} replicas against one card within {err:.2e} (tol {DP_PROBS_TOL}), "
+                  f"launches {counted}")
+            if got.shape != (n, 8) or not err <= DP_PROBS_TOL or counted != expect:
+                raise AssertionError(f"data parallel runner {label} n={n}: error {err}, launches "
+                                     f"{counted}, expected {expect}")
+            for name, count in counted.items():
+                launches[name] = launches.get(name, 0) + count
+            report["runner"][f"{label}_n{n}"] = {"max_abs_err": err, "launches": counted}
+        del single, dp
+        torch.cuda.empty_cache()
+
+    # (c) The dry run: its own ranks.
+    t0 = time.perf_counter()
+    report["dryrun"] = dryrun_multichip(DP_WORLD, device=dev)
+    report["dryrun"]["seconds"] = time.perf_counter() - t0
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"data parallel: phase 14 in {report['seconds']:.1f} s (the ranks {report['ranks_s']:.1f} s, "
+          f"the dry run {report['dryrun']['seconds']:.1f} s) [{card}]")
+    return launches, report
+
+
+def _grad_errors(got: dict, want: dict) -> dict:
+    """Each leaf's max |got - want| as a share of its scale leaf's largest
+    entry in `want`."""
+    return {n: float(np.abs(got[n] - g).max()
+                     / max(np.abs(want[_grad_scale_leaf(n)]).max(), 1e-12))
+            for n, g in want.items()}
+
+
+def _grad_l2_errors(got: dict, want: dict) -> dict:
+    """Each leaf's |got - want|_2 / |want|_2."""
+    return {n: float(np.linalg.norm(got[n] - g) / max(np.linalg.norm(g), 1e-30))
+            for n, g in want.items()}
+
+
+def _grad_error_summary(errors: dict) -> dict:
+    """-> the worst error overall and per family, and every leaf's."""
+    families = {"resnet": "video_model.", "audio": "audio_model."}
+    out = {"max": max(errors.values()), "leaves": errors}
+    for family, prefix in families.items():
+        out[family] = max((e for n, e in errors.items() if n.startswith(prefix)), default=0.0)
+    out["fusion"] = max((e for n, e in errors.items()
+                         if not n.startswith(tuple(families.values()))), default=0.0)
+    return out
+
+
+def dp_grad_spread() -> int:
+    """`python chip_smoke.py --dp-grad-spread`: where phase 14's spread of the
+    flagship's stage-2 gradients between 2 ranks and 1 rank comes from.  For
+    float32 and bfloat16: one rank run twice on identical input, with the
+    default algorithms and with PyTorch's deterministic ones; 2 ranks against
+    1 rank with each; and 2 ranks against 1 rank with the train-mode
+    BatchNorm variance taken in two passes (`_TwoPassVariance`).  Writes
+    chiprun_out/dp_grad_spread.json."""
+    import os
+    import warnings
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # before cuBLAS starts
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    from multimodalemotionrecognition_torch.parallel import launch
+    from multimodalemotionrecognition_torch.utils.device import card_line
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line(dev)
+    print(card)
+    batch = _train_batches(1, SEED + 14)[0]
+    report = {"card": card, "cards": torch.cuda.device_count()}
+    modes = ("default", "deterministic", "two_pass")
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for mode in modes:
+            _deterministic(mode == "deterministic")
+            with warnings.catch_warnings(record=True) as caught, \
+                    _TwoPassVariance() if mode == "two_pass" else contextlib.nullcontext():
+                warnings.simplefilter("always")
+                for dtype in ("float32", "bfloat16"):
+                    for k in range(2):
+                        trainer, state = _dp_trainer(dtype, dev, 1, tmp)
+                        runs[mode, dtype, k] = _dp_step(trainer, state, batch, True, timed=False)
+                        del trainer, state
+                        torch.cuda.empty_cache()
+            report[f"nondeterministic_ops_{mode}"] = sorted(
+                {str(w.message).split(".")[0] for w in caught if "deterministic" in str(w.message)})
+        _deterministic(False)
+        backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+        devices = ([torch.device("cuda", i) for i in range(2)] if backend == "nccl" else [dev] * 2)
+        ranks = {mode: launch(_dp_rank, 2, backend, devices, timeout_s=600, args=(
+            str(tmp), mode == "deterministic", False, mode == "two_pass")) for mode in modes}
+    for mode in modes:
+        for dtype in ("float32", "bfloat16"):
+            a, b, r = runs[mode, dtype, 0], runs[mode, dtype, 1], ranks[mode][0][dtype]
+            key = f"{dtype}_{mode}"
+            report[key] = {
+                "rerun_one_rank": _grad_error_summary(_grad_errors(b["grads"], a["grads"])),
+                "two_ranks_vs_one": _grad_error_summary(_grad_errors(r["grads"], a["grads"])),
+                "two_ranks_vs_one_l2": _grad_error_summary(_grad_l2_errors(r["grads"], a["grads"])),
+                "layers_run": [a["layers_run"], b["layers_run"], r["layers_run"]],
+                "loss": [a["loss"], b["loss"], r["loss"]],
+                "stats_rerun": max(_rel_err(b["stats"][n], s) for n, s in a["stats"].items()),
+                "stats_two_ranks": max(_rel_err(r["stats"][n], s) for n, s in a["stats"].items()),
+            }
+            if dtype == "bfloat16":  # how far bf16 moves each gradient from float32's, one rank
+                f32 = runs[mode, "float32", 0]["grads"]
+                report[key]["bf16_vs_f32_one_rank"] = _grad_error_summary(_grad_errors(a["grads"], f32))
+            summary = {k: (v["max"], v["resnet"], v["audio"], v["fusion"])
+                       for k, v in report[key].items() if isinstance(v, dict)}
+            print(f"dp grad spread {key}: (max, resnet, audio, fusion) {summary}, losses "
+                  f"{report[key]['loss']} [{card}]")
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "dp_grad_spread.json").write_text(json.dumps(report, indent=1))
+    print(json.dumps({k: v for k, v in report.items() if not isinstance(v, dict)}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2915,6 +3353,8 @@ def main() -> int:
         make_checkpoint(ckpt)
         export_launches, export_report = export_phase(dev, card, ckpt, Path(tmp))
         face_launches, face_report = blazeface_phase(dev, card, ckpt, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        dp_launches, dp_report = data_parallel(dev, card, Path(tmp))
 
     csrc = "multimodalemotionrecognition_torch/kernels/csrc/"
     ops = "multimodalemotionrecognition_tpu/ops/"
@@ -2979,6 +3419,12 @@ def main() -> int:
         entry["launches_face_crop"] = face_launches[entry["name"]]
         if entry["launches_export"] < 1 or entry["launches_face_crop"] < 1:
             raise AssertionError(f"{entry['name']} was not launched on phase 12's or 13's path")
+    # ... and phase 14's data-parallel paths: the ranks' train steps and the
+    # dp runner's replica forwards.
+    for entry in (kernels[0], kernels[1], kernels[2], kernels[4]):
+        entry["launches_data_parallel"] = dp_launches[entry["name"]]
+        if entry["launches_data_parallel"] < 1:
+            raise AssertionError(f"{entry['name']} was not launched on phase 14's path")
     kernels[0]["train_shapes"] = k1_train
     kernels[1]["train_shapes"] = {f"{name}_b16": rep for name, rep in k3_train.items()}
     kernels[4]["variants"] = k2
@@ -2993,7 +3439,8 @@ def main() -> int:
             raise AssertionError(f"{entry['name']} was not launched on the serve stack's path")
     print(json.dumps({"kernels": kernels, "serve": perf, "serve_stack": stack_report,
                       "families": family_perf, "bench": bench_report, "train": train_report,
-                      "export": export_report, "blazeface": face_report, "card": card}))
+                      "export": export_report, "blazeface": face_report,
+                      "data_parallel": dp_report, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3002,4 +3449,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(dp_grad_spread() if sys.argv[1:] == ["--dp-grad-spread"] else main())

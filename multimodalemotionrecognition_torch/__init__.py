@@ -7,7 +7,8 @@ a counterpart of the same name there.  The Pallas kernels of the serving
 and training paths (the WavLM attention sublayer and its backward, the conv
 feature extractor, the whole fusion block of `TorchModelRunner(fused=True)`
 and its attention core) are hand-written CUDA C++ (`kernels/csrc/`), each with a plain PyTorch version
-beside it that runs for CPU tensors.
+beside it that runs for CPU tensors.  Training and serving scale out by
+data parallelism over `torch.distributed` (`parallel/`).
 
 The package imports torch and numpy, never jax or flax, and nothing of the
 JAX package: `config.py` is its own copy of the configuration classes.

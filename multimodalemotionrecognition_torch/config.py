@@ -6,7 +6,7 @@ constants, with the same field names, defaults and environment variables, so
 a checkpoint's config dict builds either package's model.
 `AudioConfig`, `VideoConfig` (the preprocessing constants) and `DataConfig`
 (the dataset, its splits and its loaders) are copied too.
-`ServeConfig.make_mesh` (it builds a JAX device mesh) is left out.
+`ServeConfig.make_mesh` builds the port's own `parallel.mesh.Mesh`.
 `WavLMConfig` is copied from the JAX package's `models/wavlm.py`: a
 checkpoint's `wavlm_geometry` dict builds either package's model.
 """
@@ -234,13 +234,15 @@ class TrainConfig:
     """Training hyperparameters (reference src/train.py:473-672 defaults),
     field for field the JAX package's `TrainConfig`.
 
-    `donate_buffers`, `mesh_shape`, `remat`, `rng_impl` and `flat_optimizer`
-    steer XLA (buffer donation, the device mesh, rematerialisation, the PRNG
-    implementation, the optimizer's buffer layout).  They are kept, and
-    validated as the JAX trainer validates them, so one set of settings
-    builds either trainer, and they have no effect here: PyTorch frees and
-    reuses buffers itself, the port trains on one device, and its optimizer
-    runs `torch._foreach_*` passes over the trainable leaves.
+    `donate_buffers`, `remat`, `rng_impl` and `flat_optimizer` steer XLA
+    (buffer donation, rematerialisation, the PRNG implementation, the
+    optimizer's buffer layout).  They are kept, and validated as the JAX
+    trainer validates them, so one set of settings builds either trainer,
+    and they have no effect here: PyTorch frees and reuses buffers itself,
+    and the optimizer runs `torch._foreach_*` passes over the trainable
+    leaves.  `mesh_shape` (data, model) sets the data-parallel size over
+    the ranks of a `torch.distributed` group (None or data 0: every rank);
+    model > 1 (tensor parallelism) raises in `EmotionTrainer`.
     """
 
     epochs: int = 20
@@ -348,6 +350,25 @@ class ServeConfig:
             audio_int16_wire=_env("EMO_AUDIO_INT16_WIRE", "1") == "1",
             mesh_shape=_parse_mesh_shape(_env("EMO_MESH_SHAPE", "")),
         )
+
+    def make_mesh(self, device: Any = "cuda"):
+        """The serving mesh from `mesh_shape` (None when unset): the first
+        dp * tp CUDA cards, as the JAX config takes the first devices, or
+        with `device="cpu"` dp * tp replicas on the CPU.  Fewer cards raise."""
+        if self.mesh_shape is None:
+            return None
+        import torch
+
+        from multimodalemotionrecognition_torch.parallel.mesh import make_mesh
+
+        dp, tp = self.mesh_shape
+        n = dp * tp
+        if torch.device(device).type == "cpu":
+            return make_mesh((dp, tp), devices=["cpu"] * n)
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if count < n:
+            raise RuntimeError(f"EMO_MESH_SHAPE {dp},{tp} needs {n} CUDA cards; {count} here")
+        return make_mesh((dp, tp), devices=[torch.device("cuda", i) for i in range(n)])
 
 
 def _parse_mesh_shape(spec: str) -> Optional[Tuple[int, int]]:

@@ -11,6 +11,14 @@ The producer's threads touch numpy and the decoders only, never CUDA: the
 trainer pins and copies each batch on its own side stream
 (`EmotionTrainer._stage_batch`).  A sample that fails to load ends the
 epoch with its exception in the consumer.
+
+Data parallel (`rank`, `world`): every rank walks the same shuffled order,
+cuts the same padded global batches of `batch_size`, and decodes only its
+`batch_size // world` rows of each (`rank_rows`): its block of each of the
+step's `microbatches`, so that its i-th microbatch is its share of the
+global i-th.  A sample's augmentation is keyed by (seed, epoch, index), so
+the ranks' rows are the single-process batch's bit for bit; the last
+batch's padding and `valid` are the global batch's.
 """
 
 from __future__ import annotations
@@ -39,7 +47,9 @@ from multimodalemotionrecognition_torch.data.ravdess import (
     split_pairs_stratified,
 )
 
-__all__ = ["Batch", "BatchedLoader", "EmotionSampleLoader", "auto_num_threads", "build_loaders"]
+__all__ = [
+    "Batch", "BatchedLoader", "EmotionSampleLoader", "auto_num_threads", "build_loaders", "rank_rows",
+]
 
 
 @dataclass
@@ -120,13 +130,26 @@ class EmotionSampleLoader:
         return video, audio, label, meta
 
 
+def rank_rows(rank: int, world: int, batch_size: int, microbatches: int = 1) -> List[int]:
+    """The positions in a global batch of `batch_size` rows that rank `rank`
+    of `world` holds when the train step cuts the batch into `microbatches`
+    equal parts (`TrainConfig.grad_accum`): its block of each part, in
+    order, as the global step's microbatch i is rows [i * B / m, (i + 1) *
+    B / m).  One part: the rank's contiguous block."""
+    mb = batch_size // microbatches
+    n = mb // world
+    return [i * mb + rank * n + j for i in range(microbatches) for j in range(n)]
+
+
 class BatchedLoader:
     """Shuffling, prefetching batch iterator over pair records.
 
     Epoch e (counted from 1) shuffles with `RandomState(seed + e - 1)` and
     gives sample `idx` its own `RandomState((seed * 100003 + e + idx) %
     2**31)`, so the augmentation of a sample does not depend on the thread
-    that decodes it."""
+    that decodes it, nor on the rank.  With `world` > 1 each batch holds
+    rank `rank`'s `batch_size // world` rows of the global batch, those
+    `rank_rows` gives for `microbatches`."""
 
     def __init__(
         self,
@@ -139,7 +162,18 @@ class BatchedLoader:
         prefetch: int = 4,
         drop_last: bool = False,
         pad_last: bool = True,
+        rank: int = 0,
+        world: int = 1,
+        microbatches: int = 1,
     ):
+        if world > 1 and (batch_size % (world * microbatches) or not pad_last):
+            raise ValueError(f"{world} ranks need a padded global batch whose {microbatches} "
+                             f"microbatch(es) they divide; got batch_size={batch_size}, "
+                             f"pad_last={pad_last}")
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} of {world}")
+        self.rank, self.world = rank, world
+        self.positions = rank_rows(rank, world, batch_size, microbatches)
         self.pairs = list(pairs)
         self.sample_loader = sample_loader
         self.batch_size = batch_size
@@ -167,28 +201,31 @@ class BatchedLoader:
             np.random.RandomState(self.seed + self._epoch).shuffle(order)
         return order.tolist()
 
-    def _assemble(self, samples, n_valid: int) -> Batch:
-        b = self.batch_size if self.pad_last else n_valid
+    def _assemble(self, samples, slots: Sequence[int]) -> Batch:
+        """Decoded samples -> a batch holding sample k in row `slots[k]`
+        (padding elsewhere)."""
+        b = self.batch_size // self.world if self.pad_last else len(slots)
         videos, audios, labels, metas = zip(*samples)
         aug = None
         if isinstance(videos[0], tuple):  # uint8 wire: (frames_u8, aug[2])
             video = np.zeros((b,) + videos[0][0].shape, dtype=np.uint8)
             aug = np.tile(np.array([1.0, 0.0], np.float32), (b, 1))
-            for i in range(n_valid):
-                video[i], aug[i] = videos[i]
+            for k, i in enumerate(slots):
+                video[i], aug[i] = videos[k]
         else:
             video = np.zeros((b,) + videos[0].shape, dtype=np.float32)
-            for i in range(n_valid):
-                video[i] = videos[i]
+            for k, i in enumerate(slots):
+                video[i] = videos[k]
         audio = np.zeros((b,) + audios[0].shape, dtype=np.float32)
         label_arr = np.zeros((b,), dtype=np.int32)
         valid = np.zeros((b,), dtype=bool)
-        for i in range(n_valid):
-            audio[i] = audios[i]
-            label_arr[i] = labels[i]
+        for k, i in enumerate(slots):
+            audio[i] = audios[k]
+            label_arr[i] = labels[k]
             valid[i] = True
         return Batch(
-            video=video, audio=audio, labels=label_arr, valid=valid, meta=list(metas), aug=aug,
+            video=video, audio=audio, labels=label_arr, valid=valid,
+            meta=list(metas[:len(slots)]), aug=aug,
         )
 
     def __iter__(self) -> Iterator[Batch]:
@@ -218,16 +255,20 @@ class BatchedLoader:
                     for batch_indices in batches:
                         if stop.is_set():
                             return
+                        slots = [i for i, p in enumerate(self.positions) if p < len(batch_indices)]
+                        mine = [batch_indices[self.positions[i]] for i in slots]
                         futures = [
                             pool.submit(
                                 self.sample_loader,
                                 self.pairs[idx],
                                 np.random.RandomState((base_seed + idx) % (2**31)),
                             )
-                            for idx in batch_indices
+                            for idx in mine or batch_indices[:1]
                         ]
+                        # A rank with no valid row of the last batch decodes
+                        # the batch's first sample for the shapes alone.
                         samples = [f.result() for f in futures]
-                        if not put(self._assemble(samples, len(samples))):
+                        if not put(self._assemble(samples, slots)):
                             return
             except Exception as exc:  # handed to the consumer, which raises it
                 put(exc)
@@ -262,15 +303,20 @@ def auto_num_threads(requested: int = -1) -> int:
 
 def build_loaders(
     config: DataConfig, batch_size: int, num_workers: int = -1, wire: str = "float32",
+    rank: int = 0, world: int = 1, microbatches: int = 1,
 ):
     """Pairs -> (train, val, test) loaders; mirrors `build_dataloaders`
-    (`src/train.py:76-182`): pairs.csv written to the working directory,
-    stratified seed-42 or actor-based splits, augmentation on train only.
-    wire="uint8" selects the low-traffic video wire (see Batch)."""
+    (`src/train.py:76-182`): pairs.csv written to the working directory
+    (by rank 0), stratified seed-42 or actor-based splits, augmentation on
+    train only.  wire="uint8" selects the low-traffic video wire (see
+    Batch); `rank` and `world` give each loader rank `rank`'s rows of every
+    global batch of `batch_size`, the train loader's cut for a step of
+    `microbatches` (`rank_rows`)."""
     pairs = build_pairs(config.data_root, vocal_channel=config.vocal_channel)
     if not pairs:
         raise RuntimeError("No audio-video pairs found. Check data_root and filenames.")
-    save_pairs_csv(pairs, "pairs.csv")
+    if rank == 0:
+        save_pairs_csv(pairs, "pairs.csv")
 
     if config.split_mode == "stratified":
         test_ratio = max(0.0, 1.0 - config.train_ratio - config.val_ratio)
@@ -294,13 +340,16 @@ def build_loaders(
         shuffle=True,
         seed=config.seed,
         num_threads=threads,
+        rank=rank,
+        world=world,
+        microbatches=microbatches,
     )
     val_loader = BatchedLoader(
         val_p, EmotionSampleLoader(config, augment=False, wire=wire), batch_size,
-        num_threads=threads,
+        num_threads=threads, rank=rank, world=world,
     )
     test_loader = BatchedLoader(
         test_p, EmotionSampleLoader(config, augment=False, wire=wire), batch_size,
-        num_threads=threads,
+        num_threads=threads, rank=rank, world=world,
     )
     return train_loader, val_loader, test_loader

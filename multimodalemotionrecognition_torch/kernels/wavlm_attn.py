@@ -34,7 +34,8 @@ and takes the cotangent as zero there.
 Dropout (training): `attn_dropout` drops softmax probabilities and
 `hidden_dropout` the projected output before the residual, both from the
 JAX package's stateless hash (`hash_keep_plain` is `_hash_keep` bit for
-bit), seeded by one int32 `dropout_seed` that the caller draws on the host.
+bit), seeded by one int32 `dropout_seed` that the caller draws on the host
+(a data-parallel rank shifts it to its first row: `shifted_dropout_seed`).
 The attention mask's index stride is the padded `Tp`, as in the JAX kernel:
 equal seeds give equal masks only at equal `Tp`.
 
@@ -68,6 +69,7 @@ __all__ = [
     "drop_threshold",
     "hash_keep_plain",
     "forward_core_smem_bytes",
+    "shifted_dropout_seed",
     "tensor_core_route",
     "tf32x3_route",
     "wavlm_attention_sublayer",
@@ -184,6 +186,16 @@ def hash_keep_plain(base, shape: Tuple[int, int], threshold: int, device=None) -
     x = _mul32(x ^ (x >> 13), 0xC2B2AE35)
     x = x ^ (x >> 16)
     return x >= threshold
+
+
+def shifted_dropout_seed(seed: int, first_row: int) -> int:
+    """The int32 seed whose masks for rows 0, 1, ... are `seed`'s masks for
+    rows first_row, first_row + 1, ...: each row's stream base is seed +
+    row * stride (mod 2^32), in K1, K2 and the plain versions alike.  A
+    data-parallel rank holding global rows first_row... passes it, so its
+    masks are the global step's rows."""
+    shifted = (int(seed) + int(first_row) * _BATCH_STRIDE) & _MASK32
+    return shifted - (1 << 32) if shifted >= (1 << 31) else shifted
 
 
 def _keep_masks(seed: int, b: int, h: int, tp: int, e: int, attn_p: float, hid_p: float, device):

@@ -26,7 +26,8 @@ indices: every draw goes through `ops/stochastic.py` with a named generator.
 
 The forward returns the output alone, or `(output, aux)` with
 `aux["alignment_loss"]` (a scalar for `fusion_align_mode="clip"` in the
-concat and gated modes, else None) when called with `return_aux=True`.
+concat and gated modes, else None) when called with `return_aux=True`;
+inside a data-parallel step it is this rank's share of the global loss.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import torch
 from torch import nn
 
 from multimodalemotionrecognition_torch.models.temporal import TemporalPooler
+from multimodalemotionrecognition_torch.parallel.distributed import current_shard
 from multimodalemotionrecognition_torch.ops.attention import TorchMultiHeadAttention
 from multimodalemotionrecognition_torch.ops.stochastic import (
     RngStreams,
@@ -64,7 +66,13 @@ def _mlp(seq: nn.Sequential, x: torch.Tensor, rate: float,
 
 class ClipStyleAlignment(nn.Module):
     """CLIP-style shared-space alignment with symmetric InfoNCE (reference
-    `src/models/fusion.py:127-150`) -> (audio aligned, video aligned, loss)."""
+    `src/models/fusion.py:127-150`) -> (audio aligned, video aligned, loss).
+
+    Inside a data-parallel step the normalised embeddings of every rank are
+    gathered (with their gradient), so InfoNCE takes the global batch's
+    negatives as JAX's global step does; each rank then returns its share,
+    the terms of its own rows over the global batch size, and the ranks'
+    shares sum to the global batch's loss."""
 
     def __init__(self, audio_dim: int, video_dim: int, align_dim: int,
                  init_temperature: float = 0.07):
@@ -81,12 +89,17 @@ class ClipStyleAlignment(nn.Module):
         v_aligned = self.video_proj(video_emb)
         a_norm = a_aligned / a_aligned.norm(dim=-1, keepdim=True).clamp_min(1e-12)
         v_norm = v_aligned / v_aligned.norm(dim=-1, keepdim=True).clamp_min(1e-12)
-        logits = self.logit_scale.exp().clamp_max(100.0) * (a_norm @ v_norm.T)
+        scale = self.logit_scale.exp().clamp_max(100.0)
+        shard = current_shard()
+        n = a_norm.shape[0]
+        own = torch.arange(shard.rank * n, (shard.rank + 1) * n, device=a_norm.device)[:, None]
 
-        def infonce(lg):
-            return -torch.log_softmax(lg, dim=-1).diagonal().mean()
+        def rows_share(queries, keys):
+            """This rank's rows of one direction's InfoNCE, over the global size."""
+            logits = scale * (queries @ shard.gather(keys).T)
+            return -torch.log_softmax(logits, dim=-1).gather(1, own).sum() / (n * shard.world)
 
-        return a_aligned, v_aligned, 0.5 * (infonce(logits) + infonce(logits.T))
+        return a_aligned, v_aligned, 0.5 * (rows_share(a_norm, v_norm) + rows_share(v_norm, a_norm))
 
 
 class EmotionPriorBiasAdapter(nn.Module):

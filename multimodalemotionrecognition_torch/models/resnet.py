@@ -11,13 +11,20 @@ in torch's convention), which the JAX package trains with, and not stock
 `torch.nn.BatchNorm2d`: the running variance is updated with the biased
 batch variance (torch uses the unbiased one), and the statistics are taken
 in float32 as E[x^2] - E[x]^2.  `train=True` reaches every BatchNorm of the
-tower, frozen blocks included, as in the JAX model.
+tower, frozen blocks included, as in the JAX model.  Inside a data-parallel
+step (`parallel.distributed.batch_shard`) the statistics are the GLOBAL
+batch's, as JAX's jit over a sharded batch takes them: the per-channel sum,
+sum of squares and element count are summed over the ranks (the sums
+differentiably), so every rank normalises alike and its running statistics
+move identically.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from multimodalemotionrecognition_torch.parallel.distributed import current_shard
 
 __all__ = ["BasicBlock", "EvalBatchNorm2d", "ResNet18Backbone"]
 
@@ -34,8 +41,11 @@ class EvalBatchNorm2d(nn.BatchNorm2d):
         shape = (1, -1, 1, 1)
         if train:
             xf = x.float()
-            mean = xf.mean(dim=(0, 2, 3))
-            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+            count = torch.full_like(xf[0, :, 0, 0], xf.numel() // xf.shape[1])
+            sums = current_shard().sum(
+                torch.stack([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), count]))
+            mean = sums[0] / sums[2]
+            var = (sums[1] / sums[2] - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
                 self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)

@@ -53,10 +53,16 @@ from multimodalemotionrecognition_torch.kernels.conv_fe import (
     tf32x3_route,
 )
 from multimodalemotionrecognition_torch.kernels.wavlm_attn import (
+    shifted_dropout_seed,
     wavlm_attention_sublayer,
 )
 from multimodalemotionrecognition_torch.models.temporal import TemporalPooler, check_head
-from multimodalemotionrecognition_torch.ops.stochastic import RngStreams, dropout
+from multimodalemotionrecognition_torch.ops.stochastic import (
+    RngStreams,
+    draw_rows,
+    dropout,
+    row_offset,
+)
 
 __all__ = ["WavLMAudioEncoder", "WavLMAttentionSelf", "WavLMEncoderLayer", "WavLMModel"]
 
@@ -249,7 +255,11 @@ class WavLMEncoderLayer(nn.Module):
             # probabilities, projected output) run inside the kernel.
             attn_p = cfg.attention_dropout if train else 0.0
             hid_p = cfg.hidden_dropout if train else 0.0
-            seed = rng.kernel_seed("dropout") if attn_p > 0.0 or hid_p > 0.0 else None
+            seed = None
+            if attn_p > 0.0 or hid_p > 0.0:
+                # One draw for the step; a data-parallel rank's rows start
+                # at its offset in the global batch.
+                seed = shifted_dropout_seed(rng.kernel_seed("dropout"), row_offset(b))
             hidden = wavlm_attention_sublayer(
                 hidden, q, k, v,
                 gate.float().reshape(b, h * t, 1),
@@ -421,7 +431,9 @@ class WavLMModel(nn.Module):
         learned mask embedding."""
         cfg = self.config
         b, t, _ = x.shape
-        starts = torch.rand(b, t, generator=generator, device=x.device) < cfg.mask_time_prob
+        starts = draw_rows(
+            lambda s: torch.rand(s, generator=generator, device=x.device), (b, t)
+        ) < cfg.mask_time_prob
         window = cfg.mask_time_length
         # Dilate the starts into spans: a max-pool over the window ending at each frame.
         mask = F.max_pool1d(F.pad(starts.float()[:, None], (window - 1, 0)), window, stride=1)

@@ -17,13 +17,15 @@ attention kernel's dropout seed), so neither waits for the device.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
+from multimodalemotionrecognition_torch.parallel.distributed import current_shard
+
 __all__ = [
-    "RNG_STREAMS", "RngStreams", "drop_path", "dropout", "mix_noise_snr", "modality_dropout_mask",
-    "spec_augment",
+    "RNG_STREAMS", "RngStreams", "draw_rows", "drop_path", "dropout", "mix_noise_snr",
+    "modality_dropout_mask", "row_offset", "spec_augment",
 ]
 
 RNG_STREAMS = (
@@ -76,13 +78,27 @@ class RngStreams:
         return int(torch.randint(0, 2**31 - 1, (), generator=self._host[name]))
 
 
+def draw_rows(draw: Callable[[Tuple[int, ...]], torch.Tensor], shape: Sequence[int]) -> torch.Tensor:
+    """draw(shape) for a batch-major `shape`; inside a data-parallel step
+    the global batch's shape is drawn (dim 0 times the ranks) and this
+    rank's rows are kept."""
+    shard, n = current_shard(), shape[0]
+    return draw((n * shard.world,) + tuple(shape[1:]))[shard.rows(n)]
+
+
+def row_offset(rows: int) -> int:
+    """The global index of this rank's first row when it holds `rows` rows
+    of each batch (0 outside a data-parallel step)."""
+    return current_shard().rank * rows
+
+
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
     """Elementwise dropout: kept with probability 1 - rate, scaled by 1 / (1 - rate)."""
     if rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    keep = draw_rows(lambda s: torch.rand(s, generator=generator, device=x.device), x.shape) >= rate
     return x * (keep.to(x.dtype) / (1.0 - rate))
 
 
@@ -98,7 +114,7 @@ def drop_path(
     if keep_prob <= 0.0:
         return torch.zeros_like(x)
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    mask = torch.rand(shape, generator=generator, device=x.device) < keep_prob
+    mask = draw_rows(lambda s: torch.rand(s, generator=generator, device=x.device), shape) < keep_prob
     return x * mask.to(x.dtype) / keep_prob
 
 

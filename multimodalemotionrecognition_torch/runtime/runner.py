@@ -16,6 +16,16 @@ the duck-typed contract that `serving/batcher.py` relies on:
     waiting) and the forward run on the stream the runner was made on,
     whichever thread calls them, so a copy staged on one thread is ordered
     before the forward another thread runs on it (`serving/batcher.py`).
+  * `mesh` (`parallel.make_mesh((dp, 1), devices)`): data parallelism in
+    one process, as the JAX runner shards each bucket over the mesh's
+    "data" axis.  One replica of the model per mesh device (a device may
+    repeat), each with its own CUDA stream; buckets are rounded up to
+    multiples of dp (JAX `runtime/runner.py:93-100`); a batch's rows are
+    split into dp equal blocks, every replica's forward is enqueued before
+    any result is read back, and the results are gathered in order.  Each
+    replica's forward launches its own kernels (12 K1 + 6 K3, + 1 K4 when
+    fused).  A mesh with model > 1 raises (tensor parallelism is not
+    ported).
   * float32 or bfloat16 compute (the model's weights are cast once).
   * `quantize_int8=True`: weight-only int8 for the `nn.Linear` matrices
     (`runtime/quant.py`), stored int8 on the device and dequantised where
@@ -33,8 +43,8 @@ the duck-typed contract that `serving/batcher.py` relies on:
     softmaxed again.
 
 No fallback: `device="cuda"` on a host without CUDA raises, and so does a
-kernel that does not build or launch.  `mesh` and `donate` are not ported
-yet and raise `NotImplementedError`.
+kernel that does not build or launch.  `donate` (XLA buffer donation) is
+accepted and has no effect: PyTorch frees and reuses buffers itself.
 """
 
 from __future__ import annotations
@@ -62,6 +72,7 @@ from multimodalemotionrecognition_torch.convert.checkpoint import (
     normalize_torch_state_dict,
 )
 from multimodalemotionrecognition_torch.models.factory import build_model
+from multimodalemotionrecognition_torch.parallel.mesh import TP_NOT_PORTED, Mesh
 from multimodalemotionrecognition_torch.runtime.fused import (
     build_fused_xattn_forward,
     supports_fused,
@@ -134,6 +145,23 @@ class ProbsForward(nn.Module):
         return torch.softmax(out.float(), dim=1)
 
 
+@dataclasses.dataclass
+class _Replica:
+    """One copy of the served model on one device, with its stream."""
+
+    device: torch.device
+    forward: ProbsForward
+    stream: Optional[torch.cuda.Stream]
+    quantized: dict
+
+    def on_stream(self):
+        return torch.cuda.stream(self.stream) if self.stream is not None else contextlib.nullcontext()
+
+
+class _Shards(list):
+    """A batch staged on a mesh: one device tensor per replica, in order."""
+
+
 class TorchModelRunner:
     def __init__(
         self,
@@ -146,16 +174,18 @@ class TorchModelRunner:
         fused: bool = False,
         device_normalize: bool = False,
         donate: bool = False,
-        mesh: Optional[Any] = None,
+        mesh: Optional[Mesh] = None,
         fused_wavlm: Any = "auto",
         device: str | torch.device = "cuda",
     ):
-        for name, value in (("donate", donate), ("mesh", mesh)):
-            if value:
-                raise NotImplementedError(
-                    f"TorchModelRunner({name}=...) is not ported yet (ROADMAP queue 1, item 7)"
-                )
-        self.device = require_device(device, "TorchModelRunner")
+        """`device` holds the model; with `mesh` its devices hold one
+        replica each instead.  `donate` has no effect (see the module)."""
+        if mesh is not None and mesh.shape["model"] > 1:
+            raise NotImplementedError(f"TorchModelRunner(mesh={mesh}): {TP_NOT_PORTED}")
+        self.mesh = mesh
+        devices = [device] if mesh is None else mesh.data_devices
+        devices = [require_device(d, "TorchModelRunner") for d in devices]
+        self.device = devices[0]
         if compute_dtype not in _DTYPES:
             raise ValueError(f"Unsupported compute dtype: {compute_dtype}")
         self.dtype = _DTYPES[compute_dtype]
@@ -178,7 +208,9 @@ class TorchModelRunner:
         )
         self.use_wavlm = bool(config.get("use_wavlm", checkpoint_uses_wavlm(sd)))
         self.labels = list(labels_for(self.num_classes))
-        self.batch_buckets = tuple(sorted(batch_buckets))
+        self._dp = len(devices)
+        # Every bucket a multiple of the data axis, so each replica gets equal rows.
+        self.batch_buckets = tuple(sorted({-(-b // self._dp) * self._dp for b in batch_buckets}))
         self.device_normalize = device_normalize
 
         model_config = ModelConfig.from_checkpoint_dict(
@@ -199,9 +231,22 @@ class TorchModelRunner:
                 f"pooling, not fusion={model_config.canonical_fusion!r} with "
                 f"temporal_pooling={model_config.temporal_pooling!r}"
             )
-        self.model = build_model(model_config, device=self.device)
+        self.replicas = [self._build_replica(sd, d, quantize_int8, fused, mesh is not None)
+                         for d in devices]
+        first = self.replicas[0]
+        self.forward_module = first.forward
+        self.model = first.forward.model
+        self.quantized = first.quantized
+        self._fused_forward = first.forward.fused_forward
+        self._mean, self._std = self.forward_module.mean, self.forward_module.std
 
-        missing, _unexpected = self.model.load_state_dict(sd, strict=False)
+    def _build_replica(self, sd, device: torch.device, quantize_int8: bool, fused: bool,
+                       own_stream: bool) -> _Replica:
+        """The model on `device` from the state dict, quantised, fused, cast
+        and with its kernel operands cached."""
+        model_config, fusion = self.model_config, self.fusion_mode
+        model = build_model(model_config, device=device)
+        missing, _unexpected = model.load_state_dict(sd, strict=False)
         missing = [k for k in missing if not k.endswith("num_batches_tracked")]
         if len(missing) > 32:
             raise RuntimeError(
@@ -209,26 +254,25 @@ class TorchModelRunner:
                 "Checkpoint architecture does not match the runtime model."
             )
         # Tolerated missing leaves are zeros, as in the JAX runner.
-        state = self.model.state_dict()
+        state = model.state_dict()
         with torch.no_grad():
             for key in missing:
                 state[key].zero_()
         # Quantise from the float32 weights; K4's operands (float32 or int8)
         # are taken before the model is cast to the compute dtype, as the
         # kernel computes in float32 whatever the towers' dtype.
-        self.quantized = quantize_linears_int8(self.model) if quantize_int8 else {}
-        self._fused_forward = None
-        if fused:
-            self._fused_forward = build_fused_xattn_forward(self.model, model_config)
-        self.model.to(self.dtype)
+        quantized = quantize_linears_int8(model) if quantize_int8 else {}
+        fused_forward = build_fused_xattn_forward(model, model_config) if fused else None
+        model.to(self.dtype)
         if self.use_wavlm and fusion != "video":
-            encoder = self.model if fusion == "audio" else self.model.audio_model
+            encoder = model if fusion == "audio" else model.audio_model
             encoder.wavlm.cache_kernel_operands()
-        self._stream = (
-            torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
-        )
-        self.forward_module = ProbsForward(self.model, fusion, self.dtype, self._fused_forward)
-        self._mean, self._std = self.forward_module.mean, self.forward_module.std
+        stream = None
+        if device.type == "cuda":
+            # Alone: the stream the runner was made on; on a mesh, one per replica.
+            stream = torch.cuda.Stream(device) if own_stream else torch.cuda.current_stream(device)
+        return _Replica(device, ProbsForward(model, fusion, self.dtype, fused_forward), stream,
+                        quantized)
 
     # ------------------------------------------------------------------
 
@@ -241,22 +285,67 @@ class TorchModelRunner:
             audio = np.zeros((batch, 1, self.model_config.audio_n_mels, _MEL_FRAMES), np.float32)
         return video, audio
 
-    @torch.inference_mode()
-    def _forward(self, video: torch.Tensor, audio: torch.Tensor) -> torch.Tensor:
-        return self.forward_module(video, audio)
-
     def _on_stream(self):
         """The runner's stream as the calling thread's current one."""
-        return torch.cuda.stream(self._stream) if self._stream is not None else contextlib.nullcontext()
+        return self.replicas[0].on_stream()
 
-    def _put_batch(self, arr) -> torch.Tensor:
-        """Host array -> device tensor; staged tensors pass through."""
+    def _put_batch(self, arr, device: Optional[torch.device] = None) -> torch.Tensor:
+        """Host array -> tensor on `device` (the runner's); staged tensors
+        pass through."""
+        device = device or self.device
         if isinstance(arr, torch.Tensor):
-            return arr.to(self.device)
+            return arr.to(device)
         t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
         return t
+
+    def _shards(self, arr) -> list:
+        """A batch -> one block of rows per replica (a staged batch as it is)."""
+        if isinstance(arr, _Shards):
+            return list(arr)
+        if self._dp == 1:
+            return [arr]
+        rows = arr.shape[0]
+        if rows % self._dp:
+            raise ValueError(f"{rows} rows do not split over a data axis of {self._dp}")
+        n = rows // self._dp
+        return [arr[i * n:(i + 1) * n] for i in range(self._dp)]
+
+    def _stage_shards(self, arr):
+        """Each replica's rows of a bucket-padded batch, copied on its
+        stream: a `_Shards`, or the one tensor of a single replica."""
+        out = _Shards()
+        for rep, part in zip(self.replicas, self._shards(arr)):
+            with rep.on_stream():
+                out.append(self._put_batch(part, rep.device))
+        return out if self._dp > 1 else out[0]
+
+    def _mesh_forward(self, videos, audios, blank_video: bool = False) -> np.ndarray:
+        """Every replica's forward on its rows, all enqueued before the
+        first result is read back -> the probabilities in row order.  A
+        single device is a mesh of one replica."""
+        outs = []
+        audio_parts = self._shards(audios)
+        video_parts = [None] * self._dp if blank_video else self._shards(videos)
+        with torch.inference_mode():
+            for rep, video, audio in zip(self.replicas, video_parts, audio_parts):
+                with rep.on_stream():
+                    audio = self._put_batch(audio, rep.device)
+                    video = (self._blank_video(rep, audio.shape[0]) if blank_video
+                             else self._put_batch(video, rep.device))
+                    outs.append(rep.forward(video, audio))
+        probs = []
+        for rep, out in zip(self.replicas, outs):
+            with rep.on_stream():
+                probs.append(out.cpu().numpy())
+        return np.concatenate(probs)
+
+    def _blank_video(self, rep: _Replica, rows: int) -> torch.Tensor:
+        shape = (rows, _FRAMES, 3, _FRAME_SIZE, _FRAME_SIZE)
+        if self.device_normalize:
+            return torch.zeros(shape, dtype=torch.uint8, device=rep.device)
+        return (-rep.forward.mean / rep.forward.std).expand(shape)
 
     def _pad_to_bucket(self, videos, audios):
         """Bucket-pad host arrays; -> (videos, audios, n)."""
@@ -272,24 +361,20 @@ class TorchModelRunner:
         """Bucket-pad and start the host->device copy without waiting; pass
         the result to `predict_probs` (with its `n`)."""
         videos, audios, n = self._pad_to_bucket(videos, audios)
-        with self._on_stream():
-            return self._put_batch(videos), self._put_batch(audios), n
+        return self._stage_shards(videos), self._stage_shards(audios), n
 
     def stage_audio(self, audios) -> Tuple[torch.Tensor, int]:
         """`stage` for blank-video (audio-only) batches."""
         audios = _host_audio(audios)
         n = audios.shape[0]
-        with self._on_stream():
-            return self._put_batch(_pad_rows(audios, _bucket_for(n, self.batch_buckets))), n
+        return self._stage_shards(_pad_rows(audios, _bucket_for(n, self.batch_buckets))), n
 
     def predict_probs(self, videos, audios, n: Optional[int] = None) -> np.ndarray:
         """[B, ...] inputs -> [B, num_classes] probabilities (host numpy).
         Inputs may be pre-staged tensors from `stage` (pass its `n`)."""
         if n is None:
             videos, audios, n = self._pad_to_bucket(videos, audios)
-        with self._on_stream():
-            probs = self._forward(self._put_batch(videos), self._put_batch(audios))
-            return probs.cpu().numpy()[:n]
+        return self._mesh_forward(videos, audios)[:n]
 
     def predict_probs_blank_video(self, audios, n: Optional[int] = None) -> np.ndarray:
         """Audio-only batches (e.g. bare .wav uploads): the blank video is
@@ -297,14 +382,7 @@ class TorchModelRunner:
         may be pre-staged by `stage_audio` (pass its `n`)."""
         if n is None:
             audios, n = self.stage_audio(audios)
-        with self._on_stream():
-            audio = self._put_batch(audios)
-            shape = (audio.shape[0], _FRAMES, 3, _FRAME_SIZE, _FRAME_SIZE)
-            if self.device_normalize:
-                video = torch.zeros(shape, dtype=torch.uint8, device=self.device)
-            else:
-                video = (-self._mean / self._std).expand(shape)
-            return self._forward(video, audio).cpu().numpy()[:n]
+        return self._mesh_forward(None, audios, blank_video=True)[:n]
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
         """Run each bucket once (kernel builds, cuDNN algorithm choice)."""

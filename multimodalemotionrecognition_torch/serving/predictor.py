@@ -59,7 +59,7 @@ class EmotionPredictor:
                 num_classes=num_classes,
                 batch_buckets=cfg.batch_buckets,
                 compute_dtype=cfg.compute_dtype,
-                mesh=cfg.mesh_shape,
+                mesh=cfg.make_mesh(device),
                 device=device,
             )
         self.runner = runner

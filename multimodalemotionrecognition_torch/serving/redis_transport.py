@@ -331,7 +331,7 @@ def main(argv=None) -> None:  # pragma: no cover - needs a live Redis + checkpoi
         batch_buckets=cfg.batch_buckets,
         compute_dtype=cfg.compute_dtype,
         device_normalize=cfg.device_normalize,
-        mesh=cfg.mesh_shape,
+        mesh=cfg.make_mesh(),
     )
     runner.warmup()
     RedisWorker(runner, redis_url=args.redis_url).run()

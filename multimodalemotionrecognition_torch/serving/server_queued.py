@@ -88,7 +88,7 @@ def create_app(
                     compute_dtype=config.compute_dtype,
                     fused=config.fused_xattn,
                     device_normalize=config.device_normalize,
-                    mesh=config.mesh_shape,
+                    mesh=config.make_mesh(device),
                     device=device,
                 )
                 # Every bucket once at startup (kernel builds, cuDNN's

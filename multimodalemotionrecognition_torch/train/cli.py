@@ -3,16 +3,26 @@
 
 The port's copy of the JAX package's `train/cli.py`: the same flags,
 defaults and configs.  `--video_wire auto` is uint8 when the trainer runs
-on the card and float32 on the CPU.  `--mesh_data` and `--mesh_model` above
-1 (multi-GPU) raise.
+on the card and float32 on the CPU.
+
+Data parallelism: `--batch_size` is the global batch.  Inside a torchrun
+group (`maybe_initialize_distributed`, the same `[INFO]` line as JAX's)
+every rank trains its share, and `--mesh_data N` must be the group's size
+(0: all ranks).  Started alone, `--mesh_data N` above 1 spawns N ranks on
+N cards (NCCL; on the CPU, N Gloo ranks) through `parallel.launch`, so the
+JAX command line runs unchanged; fewer cards raise.  `--mesh_model` above 1
+(tensor parallelism) raises.
 
 Usage: python -m multimodalemotionrecognition_torch train --data_root data \
          --fusion xattn --use_wavlm --two_stage_training --use_cosine_annealing
+       torchrun --nproc_per_node 2 -m multimodalemotionrecognition_torch train \
+         --mesh_data 2 --data_root data --fusion xattn --use_wavlm --two_stage_training
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 
 import torch
 
@@ -191,33 +201,65 @@ def resolve_video_wire(wire: str, device) -> str:
     return "uint8" if torch.device(device).type == "cuda" else "float32"
 
 
+def _rank_main(rank, world, device, argv):
+    """One rank that `main` spawned: the group is up, so `main` trains this
+    rank's share."""
+    return main(argv, device=device)
+
+
 def main(argv=None, device="cuda"):
     """Train from the command line on `device` (the card unless the caller
-    passes "cpu").  -> `EmotionTrainer.fit`'s result."""
+    passes "cpu").  -> `EmotionTrainer.fit`'s result (rank 0's when `main`
+    spawned the ranks)."""
     args = build_arg_parser().parse_args(argv)
     model_cfg, train_cfg, data_cfg = configs_from_args(args)
-    if args.mesh_data > 1 or args.mesh_model > 1:
-        raise NotImplementedError(
-            f"--mesh_data {args.mesh_data} --mesh_model {args.mesh_model}: training across "
-            "cards is not ported yet (ROADMAP queue 1, item 12)"
+
+    from multimodalemotionrecognition_torch.parallel.distributed import (
+        launch,
+        local_device,
+        maybe_initialize_distributed,
+        rank,
+        world_size,
+    )
+    from multimodalemotionrecognition_torch.parallel.mesh import TP_NOT_PORTED
+    from multimodalemotionrecognition_torch.utils.device import require_device
+
+    if args.mesh_model > 1:
+        raise NotImplementedError(f"--mesh_model {args.mesh_model}: {TP_NOT_PORTED}")
+    device = require_device(device, "train")
+    if maybe_initialize_distributed(device_type=device.type):
+        print(
+            f"[INFO] multi-host: process {rank()}/{world_size()}, "
+            f"{world_size()} global devices"
         )
+        if args.mesh_data not in (0, world_size()):
+            raise ValueError(f"--mesh_data {args.mesh_data} in a group of {world_size()} ranks")
+        if device.type == "cuda" and device.index is None:
+            device = local_device("cuda")
+    elif args.mesh_data > 1:
+        n = args.mesh_data
+        devices = [torch.device("cuda", i) for i in range(n)] if device.type == "cuda" else ["cpu"] * n
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        argv = list(sys.argv[1:] if argv is None else argv)
+        return launch(_rank_main, n, backend, devices, args=(argv,), timeout_s=7 * 24 * 3600.0)[0]
 
     from multimodalemotionrecognition_torch.data.pipeline import build_loaders
     from multimodalemotionrecognition_torch.train.trainer import EmotionTrainer
-    from multimodalemotionrecognition_torch.utils.device import require_device
 
-    device = require_device(device, "train")
+    main_rank = rank() == 0
     wire = resolve_video_wire(train_cfg.video_wire, device)
     train_loader, val_loader, test_loader = build_loaders(
-        data_cfg, train_cfg.batch_size, num_workers=args.num_workers, wire=wire
+        data_cfg, train_cfg.batch_size, num_workers=args.num_workers, wire=wire,
+        rank=rank(), world=world_size(), microbatches=train_cfg.grad_accum,
     )
-    print(
-        f"Train pairs: {train_loader.num_samples} | "
-        f"Val pairs: {val_loader.num_samples} | Test pairs: {test_loader.num_samples}"
-    )
+    if main_rank:
+        print(
+            f"Train pairs: {train_loader.num_samples} | "
+            f"Val pairs: {val_loader.num_samples} | Test pairs: {test_loader.num_samples}"
+        )
 
     log_fn = None
-    if train_cfg.wandb:
+    if train_cfg.wandb and main_rank:
         try:
             import wandb
 
@@ -232,10 +274,11 @@ def main(argv=None, device="cuda"):
 
     trainer = EmotionTrainer(model_cfg, train_cfg, device=device)
     _, result = trainer.fit(train_loader, val_loader, test_loader, log_fn=log_fn)
-    print(
-        f"Best val macro-F1: {result['best_val_f1']:.4f} | checkpoint: "
-        f"{train_cfg.output_dir}/best_{model_cfg.fusion}.pt"
-    )
+    if main_rank:
+        print(
+            f"Best val macro-F1: {result['best_val_f1']:.4f} | checkpoint: "
+            f"{train_cfg.output_dir}/best_{model_cfg.fusion}.pt"
+        )
     return result
 
 

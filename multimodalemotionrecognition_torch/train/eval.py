@@ -87,9 +87,14 @@ class EmotionEvaluator:
             model=model, opt_state=AdamState.zeros({}),
             rng=RngStreams(train_config.seed, trainer.device),
         )
-        _, _, test_loader = build_loaders(self.dc, batch_size=16)
+        from multimodalemotionrecognition_torch.parallel.distributed import rank, world_size
+
+        # Inside a process group the trainer evaluates data parallel: each
+        # rank decodes its rows and the metrics are the global ones.
+        _, _, test_loader = build_loaders(self.dc, batch_size=16, rank=rank(), world=world_size())
         _, metrics = trainer.run_epoch(state, test_loader, train=False)
-        print(f"Test accuracy: {metrics['acc']:.4f} | macro-F1: {metrics['f1']:.4f}")
+        if rank() == 0:
+            print(f"Test accuracy: {metrics['acc']:.4f} | macro-F1: {metrics['f1']:.4f}")
         return metrics
 
 

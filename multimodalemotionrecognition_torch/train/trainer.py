@@ -1,4 +1,4 @@
-"""Training harness: two-stage finetuning on one CUDA device.
+"""Training harness: two-stage finetuning on one CUDA device per rank.
 
 Counterpart of the JAX package's `train/trainer.py` (the reference
 `EmotionTrainer`, `src/train.py:675-1201`), with the same training semantics:
@@ -47,6 +47,23 @@ the test confusion matrix (`confusion_matrix.csv`, and a PNG when matplotlib
 imports); resume checkpoints (`save_resume_state` / `restore_resume_state`:
 one `torch.save` file where the JAX trainer writes an orbax tree).
 
+Data parallelism (`TrainConfig.mesh_shape`,
+one process per rank in a `torch.distributed` group, as JAX shards the batch
+over the mesh's "data" axis): each rank holds its rows of the global batch
+(`data/pipeline.py` with `rank`, `world`) and the same parameters and
+`RngStreams`.  The step runs inside `parallel.distributed.batch_shard`, so
+per-sample draws are the global batch's rows, train-mode BatchNorm takes the
+global statistics and the CLIP term the global negatives; the
+classification loss is normalised by the global valid count, and after the
+backward the trainable gradients are all-reduced as a SUM (each rank's loss
+is its share of the global loss), one flat buffer per dtype, by an explicit
+all-reduce (no `DistributedDataParallel`: the bf16 step runs on casts through
+`functional_call` and LayerDrop leaves layers without gradients).  Losses,
+predictions and labels are reduced or gathered, so every rank computes the
+same metrics, early stopping and confusion matrix; rank 0 alone prints and
+writes checkpoints, resume files and logs, and a barrier follows each write.
+Tensor parallelism (a mesh with model > 1) raises.
+
 `fit` takes any loaders whose batches carry numpy `video`, `audio`,
 `labels`, `valid`, `aug` and `size`: `data/pipeline.py::build_loaders`
 makes them from a RAVDESS-style directory, and `train/cli.py` drives the
@@ -64,6 +81,7 @@ from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.nn import functional as F
 
 from multimodalemotionrecognition_torch.config import (
@@ -79,7 +97,14 @@ from multimodalemotionrecognition_torch.convert.checkpoint import (
 )
 from multimodalemotionrecognition_torch.models.factory import build_model
 from multimodalemotionrecognition_torch.ops.mel import log_mel_spectrogram
-from multimodalemotionrecognition_torch.ops.stochastic import RngStreams
+from multimodalemotionrecognition_torch.ops.stochastic import RngStreams, draw_rows
+from multimodalemotionrecognition_torch.parallel.distributed import (
+    BatchShard,
+    batch_shard,
+    rank,
+    world_size,
+)
+from multimodalemotionrecognition_torch.parallel.mesh import TP_NOT_PORTED
 from multimodalemotionrecognition_torch.train.freeze import (
     cosine_factor,
     lr_tree,
@@ -213,6 +238,9 @@ class EmotionTrainer:
         train_config: TrainConfig,
         device: str | torch.device = "cuda",
     ):
+        """`device` is this rank's device.  `train_config.mesh_shape` (else
+        every rank on "data") sets the data-parallel size, which must be 1
+        or the process group's size."""
         self.device = require_device(device, "EmotionTrainer")
         if model_config.compute_dtype not in _DTYPES:
             raise ValueError(f"Unsupported compute dtype: {model_config.compute_dtype}")
@@ -234,6 +262,8 @@ class EmotionTrainer:
         self.tc = train_config
         self.dtype = _DTYPES[model_config.compute_dtype]
         self._validate_train_config()
+        self.shard = self._data_parallel()
+        self.is_main = self.shard is None or self.shard.rank == 0
         self.is_single_modality = model_config.fusion in {"audio", "video"}
         self.model: Optional[torch.nn.Module] = None
         self.metrics_log: list = []
@@ -272,6 +302,65 @@ class EmotionTrainer:
                 "over microbatches), and BatchNorm statistics update once per microbatch",
                 stacklevel=3,
             )
+
+    def _data_parallel(self) -> Optional[BatchShard]:
+        """-> this rank's `BatchShard` when the data axis spans several
+        ranks, else None."""
+        if self.tc.mesh_shape is not None:
+            dp, tp = (tuple(self.tc.mesh_shape) + (1,))[:2]
+        else:
+            dp, tp = 0, 1  # JAX: every device on "data"; here every rank
+        if tp > 1:
+            raise NotImplementedError(f"EmotionTrainer: {TP_NOT_PORTED}")
+        world = world_size()
+        dp = dp or world
+        if dp == 1:
+            return None
+        if dp != world:
+            raise ValueError(f"a data axis of {dp} needs {dp} ranks; the process group has {world}")
+        return BatchShard(rank(), world)
+
+    def _global_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """`t` summed over the ranks (not recorded by autograd); itself alone."""
+        if self.shard is None:
+            return t
+        t = t.detach().clone()
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.shard.group)
+        return t
+
+    def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's `t` (equal shapes) concatenated in rank order."""
+        if self.shard is None:
+            return t
+        parts = [torch.empty_like(t) for _ in range(self.shard.world)]
+        dist.all_gather(parts, t.contiguous(), group=self.shard.group)
+        return torch.cat(parts)
+
+    def reduce_gradients(self) -> None:
+        """Sum the `.grad` of every parameter over the ranks, in place: one
+        all-reduce of a flat buffer per dtype.  Every rank runs the same
+        layers, so the same parameters hold a gradient."""
+        if self.shard is None:
+            return
+        by_dtype: Dict[torch.dtype, list] = {}
+        for p in self.model.parameters():
+            if p.grad is not None:
+                by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+        for grads in by_dtype.values():
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.shard.group)
+            offset = 0
+            for g in grads:
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
+
+    def _barrier(self) -> None:
+        if self.shard is not None:
+            dist.barrier(group=self.shard.group)
+
+    def _log(self, text: str) -> None:
+        if self.is_main:
+            print(text)
 
     def _stages(self) -> Tuple[int, ...]:
         return (1, 2) if (self.tc.two_stage_training and not self.is_single_modality) else (0,)
@@ -336,7 +425,7 @@ class EmotionTrainer:
             )
             counted = lambda keys: sum(not k.endswith("num_batches_tracked") for k in keys)  # noqa: E731
             report[branch] = (counted(result.missing_keys), counted(result.unexpected_keys))
-            print(
+            self._log(
                 f"[INFO] Loaded {branch} checkpoint: {path} "
                 f"(missing={report[branch][0]}, unused={report[branch][1]})"
             )
@@ -413,7 +502,9 @@ class EmotionTrainer:
             sigma = aug[:, 1].view(-1, 1, 1, 1, 1)
             v = v * factor
             if generator is not None:
-                v = v + sigma * torch.randn(v.shape, generator=generator, device=v.device)
+                noise = draw_rows(
+                    lambda s: torch.randn(s, generator=generator, device=v.device), v.shape)
+                v = v + sigma * noise
             v = v.clamp(0.0, 1.0)
         return (v - self._mean) / self._std
 
@@ -457,7 +548,14 @@ class EmotionTrainer:
         gradients: each classification loss is normalised by the FULL
         batch's valid count, the alignment term enters as weight * loss / n,
         BatchNorm statistics chain from microbatch to microbatch, and each
-        microbatch draws its own dropout masks from the step's streams."""
+        microbatch draws its own dropout masks from the step's streams.
+
+        Data parallel: the batch is this rank's rows as
+        `data/pipeline.py::rank_rows` lays them out for `grad_accum`
+        microbatches (its i-th microbatch is its share of the global i-th),
+        the valid count and the returned losses are the global batch's, and
+        the gradients left on `.grad` are the global ones (summed over the
+        ranks)."""
         accum = self.tc.grad_accum
         bsz = video.shape[0]
         if bsz % accum:
@@ -465,22 +563,25 @@ class EmotionTrainer:
         self._set_trainable(mask)
         self.model.zero_grad(set_to_none=True)
         mb = bsz // accum
-        denom = valid.float().sum().clamp_min(1.0)
+        denom = self._global_sum(valid.float().sum()).clamp_min(1.0)
         a_w = self._align_weight()
         cls_loss = contrastive = None
         preds = []
-        for i in range(accum):
-            rows = slice(i * mb, (i + 1) * mb)
-            mv = self._device_video(
-                video[rows], None if aug is None else aug[rows], state.rng.device("videoaug")
-            )
-            out, aux = self._apply(mv, self._audio_features(audio_wav[rows]), True, state.rng)
-            _, cls_i, ctr_i = self._losses(out, aux, labels[rows], valid[rows], denom)
-            (cls_i + a_w * ctr_i / accum).backward()
-            cls_i, ctr_i = cls_i.detach(), ctr_i.detach() / accum
-            cls_loss = cls_i if cls_loss is None else cls_loss + cls_i
-            contrastive = ctr_i if contrastive is None else contrastive + ctr_i
-            preds.append(out.detach().argmax(dim=1))
+        with batch_shard(self.shard):
+            for i in range(accum):
+                rows = slice(i * mb, (i + 1) * mb)
+                mv = self._device_video(
+                    video[rows], None if aug is None else aug[rows], state.rng.device("videoaug")
+                )
+                out, aux = self._apply(mv, self._audio_features(audio_wav[rows]), True, state.rng)
+                _, cls_i, ctr_i = self._losses(out, aux, labels[rows], valid[rows], denom)
+                (cls_i + a_w * ctr_i / accum).backward()
+                cls_i, ctr_i = cls_i.detach(), ctr_i.detach() / accum
+                cls_loss = cls_i if cls_loss is None else cls_loss + cls_i
+                contrastive = ctr_i if contrastive is None else contrastive + ctr_i
+                preds.append(out.detach().argmax(dim=1))
+        self.reduce_gradients()
+        cls_loss, contrastive = self._global_sum(torch.stack([cls_loss, contrastive]))
         total = cls_loss + a_w * contrastive
         return total, cls_loss, contrastive, torch.cat(preds)
 
@@ -502,9 +603,14 @@ class EmotionTrainer:
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, video, audio_wav, labels, valid, aug=None):
+        """Eval forward -> (total, cls_loss, contrastive, predictions): the
+        losses of the global batch, the predictions of this rank's rows."""
         video = self._device_video(video, aug, None)
-        outputs, aux = self._apply(video, self._audio_features(audio_wav), False, None)
-        total, cls_loss, contrastive = self._losses(outputs, aux, labels, valid)
+        denom = self._global_sum(valid.float().sum()).clamp_min(1.0)
+        with batch_shard(self.shard):
+            outputs, aux = self._apply(video, self._audio_features(audio_wav), False, None)
+            losses = self._losses(outputs, aux, labels, valid, denom)
+        total, cls_loss, contrastive = self._global_sum(torch.stack(losses))
         return total, cls_loss, contrastive, outputs.argmax(dim=1)
 
     # ------------------------------------------------------------------
@@ -565,7 +671,8 @@ class EmotionTrainer:
         side stream right after step N is queued, so decode and transfer
         ride under step N's compute; per-step scalars and predictions stay
         on the device until ONE fetch at the epoch's end, so the loop never
-        waits for the device between steps."""
+        waits for the device between steps.  Data parallel: the losses and
+        metrics are the global batches' on every rank."""
         totals_dev, preds_dev = [], []
         sizes, valids, labels_list = [], [], []
         first = True
@@ -597,19 +704,16 @@ class EmotionTrainer:
 
         totals = np.zeros(3)
         n = 0
-        all_preds, all_labels = [], []
+        preds = labels = np.zeros(0)
         if totals_dev:
             fetched = torch.stack(totals_dev).double().cpu().numpy()  # the one sync per epoch
-            preds_host = torch.cat(preds_dev).cpu().numpy()
-            offset = 0
-            for row, bs, valid_np, labels in zip(fetched, sizes, valids, labels_list):
+            if self.shard is not None:
+                sizes = self._global_sum(
+                    torch.tensor(sizes, dtype=torch.int64, device=self.device)).tolist()
+            for row, bs in zip(fetched, sizes):
                 totals += row * bs
                 n += bs
-                all_preds.append(preds_host[offset:offset + len(valid_np)][valid_np])
-                all_labels.append(labels[valid_np])
-                offset += len(valid_np)
-        preds = np.concatenate(all_preds) if all_preds else np.zeros(0)
-        labels = np.concatenate(all_labels) if all_labels else np.zeros(0)
+            preds, labels = self._valid_predictions(torch.cat(preds_dev), valids, labels_list)
         metrics = {
             "loss": totals[0] / max(n, 1),
             "cls_loss": totals[1] / max(n, 1),
@@ -618,6 +722,16 @@ class EmotionTrainer:
             "f1": macro_f1(preds, labels),
         }
         return state, metrics
+
+    def _valid_predictions(self, preds: torch.Tensor, valids, labels_list):
+        """Predictions (a device tensor) and the batches' host `valid` and
+        `labels` -> (predictions, labels) of the valid rows as numpy, every
+        rank's rows gathered."""
+        valid = torch.from_numpy(np.concatenate(valids)).to(preds.device)
+        labels = torch.from_numpy(np.concatenate(labels_list).astype(np.int64)).to(preds.device)
+        preds, valid, labels = (self._gather_rows(t) for t in (preds, valid, labels))
+        valid = valid.cpu().numpy()
+        return preds.cpu().numpy()[valid], labels.cpu().numpy()[valid]
 
     def fit(
         self,
@@ -653,7 +767,7 @@ class EmotionTrainer:
                 # fresh torch.optim.Adam (`:1080`): the first step of the
                 # stage zeroes count and moments.
                 reset_opt = True
-                print(f"[INFO] Switched to stage-2 at epoch {epoch}.")
+                self._log(f"[INFO] Switched to stage-2 at epoch {epoch}.")
 
             epoch_in_stage = epoch - 1 if current_stage != 2 else epoch - 1 - stage1_epochs
             epochs_in_stage = (
@@ -679,13 +793,13 @@ class EmotionTrainer:
                 **{f"val/{k}": v for k, v in val_m.items()},
             }
             history.append(row)
-            print(
+            self._log(
                 f"Epoch {epoch:02d} | stage {current_stage or '-'} | "
                 f"train loss {train_m['loss']:.4f} acc {train_m['acc']:.4f} "
                 f"f1 {train_m['f1']:.4f} | val loss {val_m['loss']:.4f} "
                 f"acc {val_m['acc']:.4f} f1 {val_m['f1']:.4f} | {dt:.1f}s"
             )
-            if log_fn:
+            if log_fn and self.is_main:
                 log_fn(row)
             self.metrics_log.append(row)
 
@@ -699,7 +813,7 @@ class EmotionTrainer:
                     self.tc.early_stopping_patience > 0
                     and patience >= self.tc.early_stopping_patience
                 ):
-                    print(
+                    self._log(
                         f"\nEarly stopping triggered! No improvement for "
                         f"{self.tc.early_stopping_patience} epochs."
                     )
@@ -709,27 +823,30 @@ class EmotionTrainer:
         if test_loader is not None and getattr(test_loader, "num_samples", 1) > 0:
             _, test_m = self.run_epoch(state, test_loader, False)
             result["test"] = test_m
-            print(
+            self._log(
                 f"Test | loss {test_m['loss']:.4f} acc {test_m['acc']:.4f} f1 {test_m['f1']:.4f}"
             )
             # Test confusion matrix (the reference plots it to W&B,
             # `src/train.py:304-326,1186-1197`): saved as CSV, and PNG.
             try:
                 cm = self._test_confusion_matrix(state, test_loader)
-                self._save_confusion_matrix(cm, out_dir)
+                if self.is_main:
+                    self._save_confusion_matrix(cm, out_dir)
                 result["confusion_matrix"] = cm.tolist()
             except Exception as exc:  # plotting must never kill a run
                 print(f"[WARNING] confusion matrix failed: {exc}")
-        out_dir.mkdir(parents=True, exist_ok=True)
-        with (out_dir / "metrics.jsonl").open("w") as f:
-            for row in history:
-                f.write(json.dumps(row) + "\n")
+        if self.is_main:
+            out_dir.mkdir(parents=True, exist_ok=True)
+            with (out_dir / "metrics.jsonl").open("w") as f:
+                for row in history:
+                    f.write(json.dumps(row) + "\n")
+        self._barrier()
         return state, result
 
     def _test_confusion_matrix(self, state: TrainState, loader) -> np.ndarray:
         """Eval predictions over `loader` -> [num_classes, num_classes]
         counts, rows the true class, valid samples only."""
-        preds, labels = [], []
+        preds, valids, labels = [], [], []
         for batch in loader:
             sb, event = self._stage_batch(batch)
             if event is not None:
@@ -737,11 +854,11 @@ class EmotionTrainer:
                 for t in sb.values():
                     t.record_stream(torch.cuda.current_stream(self.device))
             *_, p = self.eval_step(state, sb["video"], sb["audio"], sb["labels"], sb["valid"])
-            valid_np = np.asarray(batch.valid)
-            preds.append(p.cpu().numpy()[valid_np])
-            labels.append(np.asarray(batch.labels)[valid_np])
+            preds.append(p)
+            valids.append(np.asarray(batch.valid))
+            labels.append(np.asarray(batch.labels))
         return confusion_matrix(
-            np.concatenate(preds), np.concatenate(labels), self.mc.num_classes
+            *self._valid_predictions(torch.cat(preds), valids, labels), self.mc.num_classes
         )
 
     def _save_confusion_matrix(self, cm: np.ndarray, out_dir: Path) -> None:
@@ -783,7 +900,11 @@ class EmotionTrainer:
         `torch.save` file `directory/resume.pt` (the JAX trainer writes an
         orbax tree): the model's parameters and buffers, the Adam count and
         moments, the state of every generator of `RngStreams` (device and
-        host), step, epoch and best F1."""
+        host), step, epoch and best F1.  Data parallel: rank 0 writes, then
+        every rank waits for it."""
+        if not self.is_main:
+            self._barrier()
+            return
         directory = Path(directory)
         directory.mkdir(parents=True, exist_ok=True)
         cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}  # noqa: E731
@@ -797,6 +918,7 @@ class EmotionTrainer:
             "best_f1": float(best_f1),
         }
         torch.save(payload, directory / "resume.pt")
+        self._barrier()
 
     def restore_resume_state(self, directory: Path | str) -> Tuple[TrainState, int, float]:
         """-> (TrainState, epoch, best_f1) from `save_resume_state`'s file,
@@ -818,7 +940,11 @@ class EmotionTrainer:
     def save_checkpoint(self, path: Path | str, state: TrainState, val_f1: float) -> None:
         """Reference-format .pt: {"model": state_dict, "val_f1", "config"}
         (`src/train.py:1138-1144`), which `TorchModelRunner`, the JAX
-        package's runner and the reference framework load."""
+        package's runner and the reference framework load.  Data parallel:
+        rank 0 writes, then every rank waits for it."""
+        if not self.is_main:
+            self._barrier()
+            return
         path = Path(path)
         path.parent.mkdir(parents=True, exist_ok=True)
         model = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
@@ -826,3 +952,4 @@ class EmotionTrainer:
             {"model": model, "val_f1": float(val_f1), "config": self.mc.to_checkpoint_dict()},
             path,
         )
+        self._barrier()

@@ -77,10 +77,16 @@ def test_configs_from_args_equal_jax(argv):
         jax_cli.build_arg_parser().parse_args(argv))
 
 
-def test_cli_refuses_meshes_and_picks_the_wire():
-    for flags in (["--mesh_data", "2"], ["--mesh_model", "2"]):
-        with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-            cli.main(["--data_root", "absent", *flags], device="cpu")
+def test_cli_refuses_meshes_and_picks_the_wire(tmp_path, monkeypatch):
+    """`--mesh_model 2` (tensor parallelism, not ported) is refused, naming
+    its ROADMAP item; `--mesh_data 2` started alone spawns two Gloo ranks on
+    the CPU, which get as far as the data (an absent root: the ranks' own
+    error comes back)."""
+    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+        cli.main(["--data_root", "absent", "--mesh_model", "2"], device="cpu")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="rank 0 of 2 failed(.|\n)*No audio-video pairs found"):
+        cli.main(["--data_root", str(tmp_path / "absent"), "--mesh_data", "2"], device="cpu")
     assert cli.resolve_video_wire("auto", "cpu") == "float32"
     assert cli.resolve_video_wire("auto", torch.device("cuda", 0)) == "uint8"
     assert cli.resolve_video_wire("float32", "cuda") == "float32"

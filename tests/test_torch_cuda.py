@@ -1166,3 +1166,32 @@ def test_export_on_the_card_launches_the_kernels(cuda, tmp_path):
             fused_conv_layer.launches - before[1]) == (2, 6)
     want = TorchModelRunner(ckpt, device=cuda).predict_probs(video, audio)
     np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_two_ranks_on_the_card_step_like_one_rank(cuda):
+    """The flagship at SMALL widths (WavLM's dropouts, LayerDrop and span
+    masking on; K1, K2 and K3 launched), one stage-2 step on two ranks
+    (NCCL over two cards, else Gloo with both on cuda:0) against one rank on
+    the global batch of 4: the same LayerDrop draw, every draw the global
+    draw's rows bit for bit, the losses within 1e-5, the audio branch's and
+    the fusion's gradients within 1e-4 of each leaf's largest entry (K2's
+    bound), the BatchNorm statistics within 1e-5 / 1e-4."""
+    from multimodalemotionrecognition_torch.config import TrainConfig
+    from multimodalemotionrecognition_torch.parallel import launch
+    from multimodalemotionrecognition_torch.train import EmotionTrainer
+
+    # The tests' directory is on the path (pytest's rootdir-less import): on
+    # the card's machine another package takes the name `tests`.
+    import torch_dp_workers as workers
+
+    if torch.cuda.device_count() >= 2:
+        backend, devices = "nccl", ["cuda:0", "cuda:1"]
+    else:
+        backend, devices = "gloo", ["cuda:0", "cuda:0"]
+    config = workers.flagship_small_config(fused_conv=True)
+    batch = workers.flagship_batch(4)
+    ranks = launch(workers.trainer_step_rank, 2, backend, devices, timeout_s=600,
+                   args=(config, workers.FLAGSHIP_TRAIN, batch))
+    trainer = EmotionTrainer(config, TrainConfig(**workers.FLAGSHIP_TRAIN), device=cuda)
+    one = workers.trainer_step(trainer, trainer.init_state(), batch)
+    workers.assert_steps_agree(one, ranks, loss_tol=1e-5, grad_rel=1e-4, stats_tol=(1e-5, 1e-4))

@@ -19,6 +19,7 @@ from multimodalemotionrecognition_tpu.models.factory import build_model as jax_b
 from multimodalemotionrecognition_tpu.runtime.runner import JaxModelRunner
 from multimodalemotionrecognition_torch.convert import checkpoint
 from multimodalemotionrecognition_torch.kernels import build
+from multimodalemotionrecognition_torch.parallel.mesh import make_mesh
 from multimodalemotionrecognition_torch.runtime.runner import TorchModelRunner
 from multimodalemotionrecognition_torch.serving.predictor import EmotionPredictor
 
@@ -154,8 +155,18 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("option", ["donate", "mesh"])
 def test_unported_runner_options_raise(ckpt, option):
-    with pytest.raises(NotImplementedError):
-        TorchModelRunner(ckpt, device="cpu", **{option: (4, 1) if option == "mesh" else True})
+    """`donate` (XLA buffer donation) is accepted and changes nothing; a
+    data-parallel mesh is served, and only a tensor-parallel one (model > 1,
+    not ported) raises, naming its ROADMAP item."""
+    if option == "donate":
+        donated = TorchModelRunner(ckpt, device="cpu", donate=True)
+        video = np.random.default_rng(0).standard_normal((2, 8, 3, 112, 112)).astype(np.float32)
+        audio = np.random.default_rng(1).standard_normal((2, 1, 48000)).astype(np.float32) * 0.1
+        np.testing.assert_array_equal(donated.predict_probs(video, audio),
+                                      TorchModelRunner(ckpt, device="cpu").predict_probs(video, audio))
+        return
+    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+        TorchModelRunner(ckpt, device="cpu", mesh=make_mesh((1, 2), ["cpu", "cpu"]))
 
 
 def test_missing_keys_guard(ckpt, tmp_path):
