@@ -347,8 +347,9 @@ def _bound_text(limit: dict) -> str:
 
 
 # The kernels each route launches, by profiler name: K1's core and
-# out-projection, K3, and K2's products and attention passes, per dtype (their
-# tensor-core routes at these shapes).
+# out-projection, K3, K2's products and attention passes, K4's and K5's four
+# launches, K6's core and out-projection, per dtype (their tensor-core routes
+# at these shapes).
 ROUTE_KERNELS = {
     "K1": {torch.float32: ("attn_core_tf32", "out_proj_tf32"),
            torch.bfloat16: ("attn_core_mma", "out_proj_mma")},
@@ -358,6 +359,9 @@ ROUTE_KERNELS = {
            torch.bfloat16: ("bwd_proj_mma", "bwd_attn_mma")},
     "K4": {dtype: ("fb_rows_tc", "fb_video_tc", "fb_audio_tc", "fb_head_tc")
            for dtype in (torch.float32, torch.bfloat16)},
+    "K5": {torch.float32: ("xa_rows_tc", "xa_video_tc", "xa_audio_tc", "xa_pool")},
+    "K6": {torch.float32: ("tiled_core_tf32", "tiled_proj_tf32"),
+           torch.bfloat16: ("tiled_core_mma", "tiled_proj_mma")},
 }
 
 
@@ -370,7 +374,8 @@ def _check_route(label: str, dtype, names) -> bool:
         return False
     want = ROUTE_KERNELS[label][dtype]
     cuda_core = ("wavlm_attn_core", "wavlm_attn_out_proj", "conv_fe_kernel", "bwd_gemm",
-                 "bwd_attn_q", "bwd_attn_kv", "fused_block_core", "fused_block_audio_tokens")
+                 "bwd_attn_q", "bwd_attn_kv", "fused_block_core", "fused_block_audio_tokens",
+                 "xattn_core", "xattn_audio_proj", "tiled_attn_core", "tiled_out_proj")
     if not all(any(w in n for n in names) for w in want) or any(
             c in n for c in cuda_core for n in names):
         raise AssertionError(f"{label} {dtype}: expected {want} by profiler, saw {sorted(names)}")
@@ -430,8 +435,8 @@ def check_k1(dev, gen, b=8):
             raise AssertionError(f"K1 {name} disagrees with its plain version: {err}")
         report[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **limit,
                         "library_ms": None}
-        split = profile_steps(
-            lambda: wavlm_attention_sublayer(*args, num_heads=h, seq_len=t), n=5)["kernels"]
+        split = profile_steps(lambda: wavlm_attention_sublayer(*args, num_heads=h, seq_len=t),
+                              n=5, want=ROUTE_KERNELS["K1"][dtype])["kernels"]
         _check_route("K1", dtype, split)
         print(f"K1 {name} B={b} per launch: "
               + ", ".join(f"{kernel} {ms:.4f} ms" for kernel, ms in split.items()))
@@ -501,7 +506,8 @@ def check_k3(dev, gen, b=8):
                   f"max_abs_err={err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms{cached} "
                   f"plain {plain_ms:.4f} ms conv1d+gelu {library_ms:.4f} ms")
             if i == 1:
-                names |= set(profile_steps(kernel, n=3)["kernels"])
+                names |= set(
+                    profile_steps(kernel, n=3, want=ROUTE_KERNELS["K3"][dtype])["kernels"])
             if not err <= tol:
                 raise AssertionError(f"K3 {name} L{i} disagrees with its plain version: {err}")
             total["max_abs_err"] = max(total["max_abs_err"], err)
@@ -608,7 +614,8 @@ def check_k4(dev, gen):
                             line += f", 8 samples per block {ms8:.4f} ms"
                         if (variant, dtype) == ("flagship", torch.bfloat16):
                             split = profile_steps(
-                                lambda: fused_block(v_feat, a_seq, params, spec), n=5)["kernels"]
+                                lambda: fused_block(v_feat, a_seq, params, spec), n=5,
+                                want=ROUTE_KERNELS["K4"][dtype])["kernels"]
                             _check_route("K4", dtype, split)
                             print(f"K4 {name} per launch: "
                                   + ", ".join(f"{k} {x:.4f} ms" for k, x in split.items()))
@@ -642,45 +649,77 @@ def check_k4(dev, gen):
 
 
 def check_k5(dev, gen):
+    """K5 at the serving shapes (T=8, Ta=149, d=128, 4 heads), B=8 and B=1,
+    with and without the external biases: against its plain version, one
+    counted launch per call, the route its shapes take, a sample's
+    embeddings at B=1 equal to the bit to its row at B=8 and across two
+    runs; the tensor-core route's time beside the CUDA-core kernels' in the
+    same call, and each launch's device time."""
     from multimodalemotionrecognition_torch.kernels import (
         fused_bidirectional_xattn,
         fused_bidirectional_xattn_plain,
         xattn_params_from_state_dict,
     )
+    from multimodalemotionrecognition_torch.kernels import xattn
 
     t, ta, d, h = 8, 149, 128, 4
     model, _, _ = _fusion_block(gen, dev, int8=False)
     params = xattn_params_from_state_dict(model.state_dict(), device=dev)
-    report = {}
+    v8 = torch.randn(8, t, d, generator=gen).to(dev)
+    a8 = torch.randn(8, ta, d, generator=gen).to(dev)
+    bias8 = ((torch.randn(8, t, ta, generator=gen) * 0.5).to(dev),
+             (torch.randn(8, ta, t, generator=gen) * 0.5).to(dev))
+    report, full = {}, {}
     for b in (8, 1):
         for with_bias in (False, True):
-            v = torch.randn(b, t, d, generator=gen).to(dev)
-            a = torch.randn(b, ta, d, generator=gen).to(dev)
-            biases = (None, None)
-            if with_bias:
-                biases = ((torch.randn(b, t, ta, generator=gen) * 0.5).to(dev),
-                          (torch.randn(b, ta, t, generator=gen) * 0.5).to(dev))
+            v, a = v8[:b].contiguous(), a8[:b].contiguous()
+            biases = tuple(x[:b].contiguous() for x in bias8) if with_bias else (None, None)
 
             def kernel():
                 return fused_bidirectional_xattn(params, v, a, *biases, num_heads=h)
 
+            def cuda_cores():
+                return xattn._launch(params, v, a, *biases, h, tensor_cores=False)
+
             def plain():
                 return fused_bidirectional_xattn_plain(params, v, a, *biases, num_heads=h)
 
-            got, want = kernel(), plain()
+            route = "tensor cores" if xattn.tensor_core_route(v, a, h) else "CUDA cores"
+            before = fused_bidirectional_xattn.launches
+            got = kernel()
+            launched = fused_bidirectional_xattn.launches - before
+            again, want, core = kernel(), plain(), cuda_cores()
             torch.cuda.synchronize()
             err = max((g - w).abs().max().item() for g, w in zip(got, want))
-            ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+            err_core = max((g - w).abs().max().item() for g, w in zip(core, want))
             name = f"B={b} bias={with_bias}"
-            print(f"K5 {name}: max_abs_err={err:.3e} (tol {FUSION_TOL}) "
-                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-            if got[0].shape != (b, d) or got[1].shape != (b, d) or not err <= FUSION_TOL:
-                raise AssertionError(f"K5 {name} disagrees with its plain version: {err}")
+            if b == 8:
+                full[with_bias] = got
+            same_b8 = all(torch.equal(x, y[:b]) for x, y in zip(got, full[with_bias]))
+            same_run = all(torch.equal(x, y) for x, y in zip(got, again))
+            if (got[0].shape != (b, d) or got[1].shape != (b, d) or not err <= FUSION_TOL
+                    or not err_core <= FUSION_TOL):
+                raise AssertionError(f"K5 {name} disagrees with its plain version: {err} "
+                                     f"(CUDA-core kernels {err_core})")
+            if launched != 1 or route != "tensor cores" or not (same_b8 and same_run):
+                raise AssertionError(f"K5 {name}: {launched} launches, route {route}, bit-equal "
+                                     f"to B=8 {same_b8}, across runs {same_run}")
+            ms, core_ms, plain_ms = cuda_ms(kernel), cuda_ms(cuda_cores), cuda_ms(plain)
+            split = profile_steps(kernel, n=5, want=ROUTE_KERNELS["K5"][torch.float32])["kernels"]
+            _check_route("K5", torch.float32, split)
+            print(f"K5 {name}: route {route}, max_abs_err={err:.3e} (tol {FUSION_TOL}; CUDA-core "
+                  f"kernels {err_core:.3e}), one launch, bit-equal to its B=8 rows and across "
+                  f"runs; kernel {ms:.4f} ms, CUDA-core kernels {core_ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms; per launch " + ", ".join(
+                      f"{kernel_name} {x:.4f} ms" for kernel_name, x in split.items()))
             report["max_abs_err_all_variants"] = max(report.get("max_abs_err_all_variants", 0.0), err)
-            if (b, with_bias) == (8, False):
+            key = "" if (b, with_bias) == (8, False) else f"_b{b}" + ("_bias" if with_bias else "")
+            report.update({f"ms{key}": ms, f"cuda_core_ms{key}": core_ms,
+                           f"plain_ms{key}": plain_ms, f"split_ms{key}": split})
+            if not key:
                 flops = 2 * b * (4 * t * d * d + 4 * ta * d * d + 4 * t * ta * d)
                 moved = nbytes(v, a, *got, *params)
-                report.update({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                report.update({"max_abs_err": err, "route": route,
                                **bound(flops, moved, torch.float32), "library_ms": None})
                 print(f"K5 {name}: bound {report['bound_ms']:.5f} ms ({report['bound_by']}; "
                       f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB)")
@@ -689,14 +728,18 @@ def check_k5(dev, gen):
 
 def check_k6(dev):
     """K6 on the bench's tensors (Tp=160, seq_len 149, E=768, 12 heads), at
-    the experiment's batch and at the serving bucket -> report keyed by
-    (dtype name, batch)."""
+    the experiment's batch and at the serving bucket, in both dtypes: every
+    G against G=1 bit for bit, rows < seq_len against K1 (bit-equal where
+    both run their tensor-core routes) and the plain version; per G the
+    tensor-core route's time beside the CUDA-core kernels' in the same call
+    and each launch's device time -> report keyed by (dtype name, batch)."""
     from multimodalemotionrecognition_torch.bench.attn_tile import EPS, H, SEQ, make_tensors
     from multimodalemotionrecognition_torch.kernels import (
         wavlm_attention_sublayer,
         wavlm_attention_sublayer_tiled,
         wavlm_attention_sublayer_tiled_plain,
     )
+    from multimodalemotionrecognition_torch.kernels import wavlm_attn_tiled
 
     report = {}
     for b in (128, 8):
@@ -705,6 +748,8 @@ def check_k6(dev):
             args = [t.to(dtype) if t.dtype == torch.bfloat16 else t for t in make_tensors(b, dev)]
             tp, e = args[0].shape[1:]
             tail = (H, SEQ, EPS)
+            route = ("tensor cores" if wavlm_attn_tiled.tensor_core_route(args[0], H, SEQ)
+                     else "CUDA cores")
             ref = wavlm_attention_sublayer_tiled(1, *args, *tail)
             want = wavlm_attention_sublayer_tiled_plain(1, *args, *tail)
             k1 = wavlm_attention_sublayer(*args, *tail)
@@ -716,28 +761,47 @@ def check_k6(dev):
             if not (torch.isfinite(ref).all() and max(err, err_all, err_k1) <= K1_TOL[dtype]):
                 raise AssertionError(
                     f"K6 {name} B={b} disagrees: plain {err} (all rows {err_all}), K1 {err_k1}")
-            per_tile = {}
+            if route != "tensor cores" or not same_as_k1:
+                raise AssertionError(f"K6 {name} B={b}: route {route}, bit-equal to K1 {same_as_k1}")
+            per_tile, cuda_core, split = {}, {}, {}
             for g in (1, 2, 4, 8):
                 if g != 1 and not torch.equal(wavlm_attention_sublayer_tiled(g, *args, *tail), ref):
                     raise AssertionError(f"K6 {name} B={b}: G={g} differs from G=1")
                 per_tile[g] = cuda_ms(lambda: wavlm_attention_sublayer_tiled(g, *args, *tail))
+                cuda_core[g] = cuda_ms(
+                    lambda: wavlm_attn_tiled._launch(g, *args, *tail, tensor_cores=False), iters=5)
+                split[g] = profile_steps(lambda: wavlm_attention_sublayer_tiled(g, *args, *tail),
+                                         n=3, want=ROUTE_KERNELS["K6"][dtype])["kernels"]
+                _check_route("K6", dtype, split[g])
             k1_ms = cuda_ms(lambda: wavlm_attention_sublayer(*args, *tail))
+            k1_split = profile_steps(lambda: wavlm_attention_sublayer(*args, *tail), n=3)["kernels"]
             plain_ms = cuda_ms(
                 lambda: wavlm_attention_sublayer_tiled_plain(1, *args, *tail), iters=5, warmup=1)
             # q.k and p.v over seq_len keys for all Tp rows, then the out-projection.
             flops = 4 * b * tp * SEQ * e + 2 * b * tp * e * e
             limit = bound(flops, nbytes(*args, ref), dtype)
             best = min(per_tile, key=per_tile.get)
-            print(f"K6 {name}: B={b} Tp={tp} seq_len={SEQ} E={e} H={H} max_abs_err={err:.3e} "
-                  f"(rows < seq_len; all rows {err_all:.3e}; tol {K1_TOL[dtype]}), G in (2, 4, 8) "
-                  f"equal G=1 bit for bit, against K1 {err_k1:.3e} (bit-equal: {same_as_k1}); "
-                  "kernel " + ", ".join(f"G={g} {ms:.4f}" for g, ms in per_tile.items())
+            print(f"K6 {name}: B={b} Tp={tp} seq_len={SEQ} E={e} H={H} route {route} "
+                  f"max_abs_err={err:.3e} (rows < seq_len; all rows {err_all:.3e}; tol "
+                  f"{K1_TOL[dtype]}), G in (2, 4, 8) equal G=1 bit for bit, against K1 "
+                  f"{err_k1:.3e} (bit-equal: {same_as_k1}); kernel "
+                  + ", ".join(f"G={g} {ms:.4f}" for g, ms in per_tile.items())
+                  + " ms; CUDA-core kernels "
+                  + ", ".join(f"G={g} {ms:.4f}" for g, ms in cuda_core.items())
                   + f" ms; K1 {k1_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
                   f"{limit['bound_ms']:.5f} ms ({limit['bound_by']}; {flops / 1e9:.3f} GFLOP, "
                   f"{nbytes(*args, ref) / 1e6:.2f} MB)")
+            for g in per_tile:
+                print(f"K6 {name} B={b} G={g} per launch: "
+                      + ", ".join(f"{k} {x:.4f} ms" for k, x in split[g].items()))
+            print(f"K1 {name} B={b} per launch (K6's tensors): "
+                  + ", ".join(f"{k} {x:.4f} ms" for k, x in k1_split.items()))
             report[name, b] = {
-                "max_abs_err": err, "ms": per_tile[best], "best_tile": best,
-                "ms_per_tile": {str(g): ms for g, ms in per_tile.items()}, "k1_ms": k1_ms,
+                "max_abs_err": err, "ms": per_tile[best], "best_tile": best, "route": route,
+                "ms_per_tile": {str(g): ms for g, ms in per_tile.items()},
+                "cuda_core_ms_per_tile": {str(g): ms for g, ms in cuda_core.items()},
+                "split_ms_per_tile": {str(g): x for g, x in split.items()}, "k1_ms": k1_ms,
+                "k1_split_ms": k1_split,
                 "plain_ms": plain_ms, **limit, "library_ms": None, "bit_equal_to_k1": same_as_k1,
             }
     return report
@@ -865,7 +929,7 @@ def check_train_kernels(dev, gen):
             key = f"{name}_{label.replace(' ', '_')}"
             k2_report[key] = {
                 "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **limit, "library_ms": None}
-            split = profile_steps(kernel, n=5)["kernels"]
+            split = profile_steps(kernel, n=5, want=ROUTE_KERNELS["K2"][dtype])["kernels"]
             _check_route("K2", dtype, split)
             print(f"K2 {name} B={b} {label} per launch: "
                   + ", ".join(f"{kernel_name} {t:.4f} ms" for kernel_name, t in split.items())
@@ -898,17 +962,19 @@ def _train_batches(n, seed, augment=True):
     return out
 
 
-def profile_steps(step, n: int = 2, attempts: int = 3) -> dict:
+def profile_steps(step, n: int = 2, attempts: int = 3, want=()) -> dict:
     """Device time of `n` calls of step() by `torch.profiler` -> busy share
     of the wall time and the device time per step, by group and by kernel
     (`kernels`: short name -> ms).  A window in which the tracer recorded no
-    device event at all is taken again, up to `attempts` windows: the
-    tracer now and then returns an empty window on that card."""
+    device event at all, or none of a kernel named in `want`, is taken
+    again, up to `attempts` windows: the tracer now and then returns an
+    empty window on that card, or one without a step's first launches."""
     for attempt in range(attempts):
         if attempt:
             time.sleep(0.5)
         out = _profile_window(step, n)
-        if out["device_ms"] is not None:
+        if out["device_ms"] is not None and all(
+                any(w in k for k in out["kernels"]) for w in want):
             break
     return out
 
@@ -1810,6 +1876,7 @@ def bench_entries(dev, gen):
     print(f"bench attn_tile: launches {got}")
     tiles = report["attn_tile"]["results"]
     if (k6_launches < 1 or set(tiles) != {"1", "2", "4", "8"} or got["fused_conv_layer"]
+            or report["attn_tile"]["route"] != "tensor cores"
             or not all(np.isfinite(ms) and ms > 0 for ms in tiles.values())
             or not report["attn_tile"]["k1_ms"] > 0):
         raise AssertionError(f"bench.attn_tile: {report['attn_tile']}, launches {got}")
@@ -3276,6 +3343,7 @@ def dp_grad_spread() -> int:
 
 
 def main() -> int:
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -3309,19 +3377,27 @@ def main() -> int:
                                            "attn_core_tf32", "out_proj_tf32", "bwd_proj_tf32",
                                            "bwd_query_tf32", "bwd_key_tf32", "fb_rows_tc",
                                            "fb_video_tc", "fb_audio_tc", "fb_head_tc",
-                                           "tc_product"))}
+                                           "tc_product", "xa_rows_tc", "xa_video_tc",
+                                           "xa_audio_tc", "tiled_core_mma", "tiled_proj_mma",
+                                           "tiled_core_tf32", "tiled_proj_tf32"))}
     print(f"build: spill bytes of the tensor-core kernels {tensor_core}")
     # 7 bf16 instances, 10 float32 (3xTF32) ones, K4's 6 (3xTF32: the rows
-    # kernel once per tower dtype, three more kernels, their product routine).
-    if len(tensor_core) < 23 or any(tensor_core.values()):
+    # kernel once per tower dtype, three more kernels, their product routine);
+    # K5's 4 (three kernels and its copy of the product routine), K6's 6 (the
+    # core for 64 and 160 keys and the out-projection, per dtype).
+    if len(tensor_core) < 33 or any(tensor_core.values()):
         raise AssertionError(f"tensor-core kernels missing from the build log or spilling: {tensor_core}")
 
     gen = torch.Generator().manual_seed(SEED)
     k1 = check_k1(dev, gen)
     k3 = check_k3(dev, gen)
     k4 = check_k4(dev, gen)
+    t5 = time.perf_counter()
     k5 = check_k5(dev, gen)
+    t6 = time.perf_counter()
     k6 = check_k6(dev)
+    k5["phase_seconds"], k6_seconds = t6 - t5, time.perf_counter() - t6
+    print(f"K5 phase {k5['phase_seconds']:.1f} s, K6 phase {k6_seconds:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = Path(tmp) / "flagship.pt"
         cfg, video, audio = make_checkpoint(ckpt)
@@ -3389,7 +3465,15 @@ def main() -> int:
     kernels[1]["sources"] = [csrc + "conv_fe_tc.cu", csrc + "conv_fe_tf32.cu", csrc + "hopper.cuh",
                              csrc + "conv_fe.cu"]
     kernels[2]["sources"] = [csrc + "fused_block.cu", csrc + "fused_block_tc.cuh",
+                             csrc + "tc_product.cuh", csrc + "fusion.cuh", csrc + "hopper.cuh"]
+    kernels[3]["sources"] = [csrc + "xattn.cu", csrc + "xattn_tc.cuh", csrc + "tc_product.cuh",
                              csrc + "fusion.cuh", csrc + "hopper.cuh"]
+    kernels[5]["sources"] = [csrc + "wavlm_attn_tiled.cu", csrc + "wavlm_attn_tiled_tc.cuh",
+                             csrc + "wavlm_attn_tiled_tf32.cuh", csrc + "wavlm_sublayer.cuh",
+                             csrc + "hopper.cuh"]
+    # K6's float32 route (3xTF32) beside the bfloat16 row, at the experiment's batch.
+    kernels[5]["float32"] = k6["float32", 128]
+    kernels[5]["phase_seconds"] = k6_seconds
     # K1's device time per launch by dtype, at each batch it was held at.
     kernels[0]["split_ms"] = {
         name: {"b8": k1[name]["split_ms"], **{
@@ -3437,6 +3521,7 @@ def main() -> int:
         entry["launches_serve_stack"] = stack_launches[entry["name"]]
         if entry["launches_serve_stack"] < 1:
             raise AssertionError(f"{entry['name']} was not launched on the serve stack's path")
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels, "serve": perf, "serve_stack": stack_report,
                       "families": family_perf, "bench": bench_report, "train": train_report,
                       "export": export_report, "blazeface": face_report,

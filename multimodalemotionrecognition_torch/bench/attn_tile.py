@@ -6,7 +6,9 @@ inputs (numpy `RandomState(0)`, the same draws in the same order: Tp = 160,
 `seq_len` = 149, E = 768, 12 heads, bfloat16 activations and `wo`, float32
 gate, bias, `bo` and LayerNorm) and the same two stages: every G must equal
 G = 1 bit for bit before anything is timed; then one time per G.  The times
-are CUDA events over launches queued after a warm-up.  K1
+are CUDA events over launches queued after a warm-up.  At these shapes K6
+runs its tensor-core route (`wavlm_attn_tiled.tensor_core_route`), the
+report's "route".  K1
 (`wavlm_attention_sublayer`, one block per batch element, head and query
 tile) is timed on the same tensors: the comparison the experiment is for.
 
@@ -29,6 +31,7 @@ from multimodalemotionrecognition_torch.kernels import (
     wavlm_attention_sublayer,
     wavlm_attention_sublayer_tiled,
 )
+from multimodalemotionrecognition_torch.kernels.wavlm_attn_tiled import tensor_core_route
 
 SEQ = 149  # WavLM-base tokens for 3 s at 16 kHz
 PAD = 160
@@ -113,6 +116,7 @@ def main(
         "best_tile": best,
         "baseline_g1": results.get(1),
         "k1_ms": k1_ms,
+        "route": ("tensor cores" if tensor_core_route(tensors[0], h, seq) else "CUDA cores"),
         "card": card_line(device),
     }
     print(json.dumps(report))

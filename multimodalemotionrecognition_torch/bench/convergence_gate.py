@@ -15,7 +15,9 @@ the checkpoints land inside the corpus root.  The report carries margin
 metrics that move before pass/fail does: the mean test top-1 softmax margin
 (p1 - p2), val F1 at epoch 3, and the first epoch to reach 0.8 val
 accuracy.  The video wire is the CLI's `auto`: uint8 on the card, float32
-on the CPU.
+on the CPU.  The run uses PyTorch's deterministic algorithms (cuDNN's
+included), so that the fixed seed fixes the reading on the card as it does
+on the CPU; the previous settings come back afterwards.
 
 Usage: python -m multimodalemotionrecognition_torch.bench.convergence_gate \\
          [--epochs 12] [--target 0.70] [--signal_strength 0.4] [--device cpu] [--root DIR]
@@ -25,6 +27,7 @@ Prints one JSON line; exit code 1 below the target.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -35,7 +38,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-__all__ = ["build_arg_parser", "gate", "main", "write_corpus"]
+__all__ = ["build_arg_parser", "deterministic_algorithms", "gate", "main", "write_corpus"]
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -77,9 +80,31 @@ def write_corpus(root: Path | str, signal_strength: float) -> int:
     )
 
 
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """PyTorch's deterministic algorithms and cuDNN's deterministic, untimed
+    choice of convolution while the block is open; an op without a
+    deterministic implementation warns.  Restores the previous settings."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[2:]
+
+
 def gate(argv=None) -> dict:
     """Run the gate; prints and returns its JSON report."""
     args = build_arg_parser().parse_args(argv)
+    with deterministic_algorithms():
+        return _gate(args)
+
+
+def _gate(args) -> dict:
     from multimodalemotionrecognition_torch.data.pipeline import build_loaders
     from multimodalemotionrecognition_torch.train.cli import (
         build_arg_parser as cli_parser,

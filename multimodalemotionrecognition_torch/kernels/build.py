@@ -63,6 +63,10 @@ _SIGNATURES = {
     # as emo_wavlm_attn up to out; then G, B, Tp, seq_len, E, H, eps, stream
     "emo_wavlm_attn_tiled_f32": [_P] * 13 + [_I] * 6 + [_F, _P],
     "emo_wavlm_attn_tiled_bf16": [_P] * 13 + [_I] * 6 + [_F, _P],
+    # the tensor-core route: the same with W_o transposed after out (float32
+    # only, else null)
+    "emo_wavlm_attn_tiled_tc_f32": [_P] * 14 + [_I] * 6 + [_F, _P],
+    "emo_wavlm_attn_tiled_tc_bf16": [_P] * 14 + [_I] * 6 + [_F, _P],
     # y, w, out, B, rows, t_in, k, stride, cin, cout, gelu_in, gelu_out, stream
     "emo_conv_fe_f32": [_P] * 3 + [_I] * 9 + [_P],
     "emo_conv_fe_bf16": [_P] * 3 + [_I] * 9 + [_P],
@@ -79,7 +83,7 @@ _FUSION_ARGTYPES = [
     ctypes.POINTER(_P), _I, ctypes.POINTER(_I), _I, ctypes.c_float, ctypes.c_float, _P,
 ]
 for _name in ("emo_fused_block_f32", "emo_fused_block_bf16", "emo_fused_block_tc_f32",
-              "emo_fused_block_tc_bf16", "emo_xattn"):
+              "emo_fused_block_tc_bf16", "emo_xattn", "emo_xattn_tc"):
     _SIGNATURES[_name] = _FUSION_ARGTYPES
 
 

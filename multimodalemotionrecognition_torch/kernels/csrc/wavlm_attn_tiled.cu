@@ -36,7 +36,15 @@
 //  (c) K1's LayerNorm pass over all B * Tp rows.
 // G changes which block computes a row and never how the row is reduced:
 // every sum runs over the same index order with one accumulator, no atomics.
+//
+// These CUDA-core kernels keep the shapes outside the tensor-core route.
+// Where the head width is 64 and seq_len <= 160 (K1's tensor-core route),
+// `emo_wavlm_attn_tiled_tc_*` run K1's tensor-core arithmetic with the batch
+// tile inside the block instead: `wavlm_attn_tiled_tc.cuh` (bfloat16) and
+// `wavlm_attn_tiled_tf32.cuh` (float32, 3xTF32), then the same LayerNorm.
 
+#include "wavlm_attn_tiled_tc.cuh"
+#include "wavlm_attn_tiled_tf32.cuh"
 #include "wavlm_sublayer.cuh"
 
 namespace {
@@ -194,6 +202,30 @@ int launch(const void* hidden, const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The tensor-core route: core and out-projection by `TC`'s launcher, then
+// K1's LayerNorm over all B * Tp rows.
+template <typename T, typename Launch>
+int launch_tc(Launch core_and_proj, const void* hidden, const void* q, const void* k,
+              const void* v, const void* gate, const void* bias, const void* wo, const void* bo,
+              const void* lns, const void* lnb, void* ctx, void* proj, void* out, int G, int B,
+              int Tp, int seq_len, int E, int H, float eps, void* stream_ptr) {
+  if (G < 1 || B < 1 || B % G != 0 || H < 1 || seq_len < 1 || seq_len > Tp ||
+      E > 32 * kLnMaxPerLane || B / G > 65535)
+    return cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  cudaError_t err = core_and_proj(
+      static_cast<const T*>(hidden), static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const float*>(gate), static_cast<const float*>(bias),
+      static_cast<const T*>(wo), static_cast<const float*>(bo), static_cast<T*>(ctx),
+      static_cast<float*>(proj), G, B, Tp, seq_len, E, H, stream);
+  if (err != cudaSuccess) return err;
+  const int M = B * Tp;
+  emo::wavlm_attn_ln<T><<<(M + kLnWarps - 1) / kLnWarps, kLnWarps * 32, 0, stream>>>(
+      static_cast<const float*>(proj), static_cast<const float*>(lns),
+      static_cast<const float*>(lnb), static_cast<T*>(out), M, Tp, Tp, E, eps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 #define EMO_WAVLM_ATTN_TILED_ENTRY(NAME, T)                                      \
@@ -209,3 +241,29 @@ int launch(const void* hidden, const void* q, const void* k, const void* v,
 
 EMO_WAVLM_ATTN_TILED_ENTRY(emo_wavlm_attn_tiled_f32, float)
 EMO_WAVLM_ATTN_TILED_ENTRY(emo_wavlm_attn_tiled_bf16, __nv_bfloat16)
+
+// As the entries above, with `wo_t` (W_o transposed, float32 only: null for
+// bfloat16) after `out`; the tensor-core route.
+extern "C" int emo_wavlm_attn_tiled_tc_f32(const void* hidden, const void* q, const void* k,
+                                           const void* v, const void* gate, const void* bias,
+                                           const void* wo, const void* bo, const void* lns,
+                                           const void* lnb, void* ctx, void* proj, void* out,
+                                           const void* wo_t, int G, int B, int Tp, int seq_len,
+                                           int E, int H, float eps, void* stream) {
+  (void)wo;
+  return launch_tc<float>(emo::tiled_tf32::launch_core_and_proj, hidden, q, k, v, gate, bias,
+                          wo_t, bo, lns, lnb, ctx, proj, out, G, B, Tp, seq_len, E, H, eps,
+                          stream);
+}
+
+extern "C" int emo_wavlm_attn_tiled_tc_bf16(const void* hidden, const void* q, const void* k,
+                                            const void* v, const void* gate, const void* bias,
+                                            const void* wo, const void* bo, const void* lns,
+                                            const void* lnb, void* ctx, void* proj, void* out,
+                                            const void* wo_t, int G, int B, int Tp, int seq_len,
+                                            int E, int H, float eps, void* stream) {
+  (void)wo_t;
+  return launch_tc<__nv_bfloat16>(emo::tiled_tc::launch_core_and_proj, hidden, q, k, v, gate,
+                                  bias, wo, bo, lns, lnb, ctx, proj, out, G, B, Tp, seq_len, E,
+                                  H, eps, stream);
+}

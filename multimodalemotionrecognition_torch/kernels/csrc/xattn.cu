@@ -20,9 +20,15 @@
 //  (b) xattn_core: one block per sample keeps v, the score tiles, the a2v
 //      context and a' in shared memory (~170 KB) and runs the rest of the
 //      chain; weights are read from L2 as they lie.  B <= 8 leaves >= 124 of
-//      132 SMs idle in (b); accepted for now.
+//      132 SMs idle in (b).
+//
+// These CUDA-core kernels (`emo_xattn`) keep the shapes outside the
+// tensor-core route; `emo_xattn_tc` runs that route (`xattn_tc.cuh`: four
+// launches, the products on wgmma in 3xTF32, the video side on a cluster of
+// one block per head).
 
 #include "fusion.cuh"
+#include "xattn_tc.cuh"
 
 using namespace emo::fusion;
 
@@ -86,4 +92,13 @@ extern "C" int emo_xattn(const void* const* ptrs, int n_ptrs, const int* ints,
   if (err != cudaSuccess) return err;
   xattn_core<<<p.B, kCoreThreads, smem_b, stream>>>(p);
   return cudaGetLastError();
+}
+
+// The tensor-core route (`xattn_tc.cuh`); the tables as `emo_xattn`'s, with
+// the float32 workspace in the `work` slot and its size in `work_floats`.
+extern "C" int emo_xattn_tc(const void* const* ptrs, int n_ptrs, const int* ints, int n_ints,
+                            float eps, float qscale, void* stream_ptr) {
+  Params p;
+  if (!unpack(ptrs, n_ptrs, ints, n_ints, eps, qscale, &p)) return cudaErrorInvalidValue;
+  return emo::xattn_tc::launch(p, static_cast<cudaStream_t>(stream_ptr));
 }

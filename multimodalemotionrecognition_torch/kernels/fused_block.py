@@ -49,9 +49,18 @@ import torch
 from torch.nn import functional as F
 
 from multimodalemotionrecognition_torch.kernels.xattn import (
+    _MAX_SMEM,
+    _MAX_VIDEO_TOKENS,
+    _TC_BASE_BYTES,
+    _TC_CHUNK,
+    _TC_MAX_COLS,
+    _TC_RING_STAGES,
+    _TC_ROWS,
+    _TC_X_ROWS,
     BIAS_NONE,
     BIAS_PRIOR,
     XattnParams,
+    _x_stride,
     bidirectional_attention_plain,
     PointerTable,
     layer_norm_plain,
@@ -69,14 +78,6 @@ __all__ = [
 ]
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_MAX_VIDEO_TOKENS = 16  # csrc/fusion.cuh::kMaxT
-_MAX_SMEM = 227 * 1024
-# csrc/fused_block_tc.cuh: kRows, kMaxCols, kChunk, kRingStages, kXRows, and
-# the shared memory every kernel of the route starts with (kBaseBytes: X's
-# double-buffered hi and lo chunk blocks, the weight ring), plus 1 KB to
-# align it to the swizzle's atoms.
-_TC_ROWS, _TC_MAX_COLS, _TC_CHUNK, _TC_RING_STAGES, _TC_X_ROWS = 16, 128, 32, 3, 32
-_TC_BASE_BYTES = 4 * _TC_X_ROWS * 128 + _TC_RING_STAGES * _TC_CHUNK * (4 * _TC_MAX_COLS + 16)
 
 @dataclasses.dataclass(frozen=True)
 class FusedBlockSpec:
@@ -279,11 +280,6 @@ def _dims(v_feat, a_seq, params: FusedBlockParams, spec: FusedBlockSpec) -> Dict
         "prior_dim": prior_dim, "prior_hidden": prior_hidden,
         "head_hidden": m["h_w1"].shape[1] if spec.head == "concat" else spec.d_model,
     }
-
-
-def _x_stride(k: int) -> int:
-    """Row stride of a shared X tile of width k (csrc/fused_block_tc.cuh::x_stride)."""
-    return -(-k // 32) * 32 + 4
 
 
 def tc_smem_bytes(dims: Mapping[str, int]) -> Dict[str, int]:

@@ -18,8 +18,17 @@ columns at or past `seq_len` get no weight; all Tp rows of the output are
 computed and written (the padding rows hold what the padding rows of q and
 hidden give).  There is no dropout and no gradient.
 
+On the card two routes compute it.  Where `tensor_core_route` says so (a
+head width of 64 and `seq_len` <= 160, K1's tensor-core route) the kernels
+of `csrc/wavlm_attn_tiled_tc.cuh` (bfloat16) and `csrc/
+wavlm_attn_tiled_tf32.cuh` (float32, 3xTF32) run K1's tensor-core
+arithmetic with the batch tile inside the block: the same bits as K1 on rows
+below `seq_len`.  The float32 route reads W_o transposed, a per-call copy
+counted in its time.  Other shapes run the CUDA-core kernels of
+`csrc/wavlm_attn_tiled.cu`.
+
 For CPU tensors the wrapper runs the plain PyTorch version; for CUDA tensors
-it launches the kernel or raises.  Kernel launches are counted in
+it launches the kernel or raises.  Kernel calls are counted in
 `wavlm_attention_sublayer_tiled.launches`.
 """
 
@@ -35,9 +44,26 @@ from multimodalemotionrecognition_torch.kernels.wavlm_attn import (
     _validate,
 )
 
-__all__ = ["wavlm_attention_sublayer_tiled", "wavlm_attention_sublayer_tiled_plain"]
+__all__ = [
+    "tensor_core_route",
+    "wavlm_attention_sublayer_tiled",
+    "wavlm_attention_sublayer_tiled_plain",
+]
 
 _GEMM_DEPTH, _GEMM_TILE = 16, 64  # kBK and kBM = kBN in csrc/wavlm_attn_tiled.cu
+_TC_HEAD_DIM, _TC_MAX_KEYS = 64, 160  # the tensor-core route's head width and keys held
+_MAX_WIDTH = 1024  # the LayerNorm pass: 32 lanes x kLnMaxPerLane
+
+
+def tensor_core_route(hidden: torch.Tensor, num_heads: int, seq_len: int) -> bool:
+    """True when K6 runs its tensor-core kernels on these arguments (the
+    shapes of K1's tensor-core routes, `wavlm_attn.tensor_core_route` and
+    `tf32x3_route`): bfloat16 or float32, a head width of 64, `seq_len` <=
+    160, E <= 1024.  Otherwise its CUDA-core kernels run.  A misaligned
+    operand is refused by the kernel with an error."""
+    e = hidden.shape[-1]
+    return (hidden.dtype in (torch.bfloat16, torch.float32) and e == _TC_HEAD_DIM * num_heads
+            and seq_len <= _TC_MAX_KEYS and e <= _MAX_WIDTH)
 
 
 def _check_tile(g_tile: int, batch: int) -> None:
@@ -99,30 +125,52 @@ def wavlm_attention_sublayer_tiled(
         return wavlm_attention_sublayer_tiled_plain(g_tile, *args, num_heads, seq_len, eps)
     if hidden.device.type != "cuda":
         raise ValueError(f"unsupported device {hidden.device}")
+    return _launch(g_tile, *args, num_heads, seq_len, eps,
+                   tensor_cores=tensor_core_route(hidden, num_heads, seq_len))
+
+
+def _launch(g_tile, hidden, q, k, v, gate, position_bias, wo, bo, ln_scale, ln_bias,
+            num_heads: int, seq_len: int, eps: float, tensor_cores: bool) -> torch.Tensor:
+    """K6 on the card by the route named: the tensor-core kernels (shapes
+    `tensor_core_route` takes) or the CUDA-core kernels of
+    csrc/wavlm_attn_tiled.cu."""
+    args = (hidden, q, k, v, gate, position_bias, wo, bo, ln_scale, ln_bias)
+    b, tp, e = hidden.shape
     dh = e // num_heads
-    if e > 1024 or e % _GEMM_DEPTH != 0:
+    if tensor_cores:
+        if not tensor_core_route(hidden, num_heads, seq_len):
+            raise ValueError(
+                f"{hidden.dtype}, E={e}, {num_heads} heads, seq_len={seq_len}: outside "
+                "K6's tensor-core route")
+    elif e > 1024 or e % _GEMM_DEPTH != 0:
         raise ValueError(f"E={e} must be a multiple of {_GEMM_DEPTH} up to 1024 for the K6 kernel")
-    smem = max(
-        4 * (seq_len * (2 * dh + 1) + 8 * (dh + seq_len) + 32 * seq_len),  # attention core
-        4 * (e * _GEMM_TILE + _GEMM_DEPTH * (_GEMM_TILE + 4)),  # out-projection
-    )
-    if smem > _MAX_SMEM:
-        raise ValueError(f"seq_len={seq_len}, E={e} need {smem} B of shared memory")
+    else:
+        smem = max(
+            4 * (seq_len * (2 * dh + 1) + 8 * (dh + seq_len) + 32 * seq_len),  # attention core
+            4 * (e * _GEMM_TILE + _GEMM_DEPTH * (_GEMM_TILE + 4)),  # out-projection
+        )
+        if smem > _MAX_SMEM:
+            raise ValueError(f"seq_len={seq_len}, E={e} need {smem} B of shared memory")
     if b // g_tile > 65535:
         raise ValueError(f"B / g_tile = {b // g_tile} exceeds the grid's limit of 65535")
 
     lib = load_library()
-    fn = (lib.emo_wavlm_attn_tiled_f32 if hidden.dtype == torch.float32
-          else lib.emo_wavlm_attn_tiled_bf16)
+    f32 = hidden.dtype == torch.float32
     ctx = torch.empty_like(hidden)  # attention context, compute dtype
     pre = torch.empty_like(hidden, dtype=torch.float32)  # pre-LayerNorm rows
     out = torch.empty_like(hidden)
     with torch.cuda.device(hidden.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            *(t.data_ptr() for t in (*args, ctx, pre, out)),
-            g_tile, b, tp, seq_len, e, num_heads, eps, stream,
-        )
+        pointers = [t.data_ptr() for t in (*args, ctx, pre, out)]
+        if tensor_cores:
+            fn = lib.emo_wavlm_attn_tiled_tc_f32 if f32 else lib.emo_wavlm_attn_tiled_tc_bf16
+            # The float32 out-projection reads W_o transposed (TF32 wgmma
+            # takes both operands K-major): a per-call copy, as K1's.
+            wo_t = wo.t().contiguous() if f32 else None
+            pointers.append(None if wo_t is None else wo_t.data_ptr())
+        else:
+            fn = lib.emo_wavlm_attn_tiled_f32 if f32 else lib.emo_wavlm_attn_tiled_bf16
+        err = fn(*pointers, g_tile, b, tp, seq_len, e, num_heads, eps, stream)
     check(lib, err, "wavlm_attention_sublayer_tiled")
     wavlm_attention_sublayer_tiled.launches += 1
     return out

@@ -17,9 +17,17 @@ The CUDA source and its design note are in `csrc/xattn.cu`.
 [d, d] are (in, out) matrices, the transposes of torch's `in_proj_weight`
 and `out_proj.weight`.
 
+On the card two routes compute it.  Where `tensor_core_route` says so (the
+serving shapes: T <= 16, d a multiple of 32 up to 128, at most 8 heads of a
+width that is a multiple of 4) the tensor-core route runs (`csrc/
+xattn_tc.cuh`: four launches, every product on wgmma in 3xTF32, the video
+side on a cluster of one block per head); other shapes run the CUDA-core
+kernels of `csrc/xattn.cu`.
+
 For CPU tensors the wrapper runs `fused_bidirectional_xattn_plain`; for CUDA
 tensors it launches the kernel or raises.
-`fused_bidirectional_xattn.launches` counts kernel launches.
+`fused_bidirectional_xattn.launches` counts kernel calls (one per call of
+either route).
 
 This module also holds the pointer table both kernels' C entry points take
 (`PointerTable`), in the order of the enums in `csrc/fusion.cuh`.
@@ -28,7 +36,7 @@ This module also holds the pointer table both kernels' C entry points take
 from __future__ import annotations
 
 import ctypes
-from typing import Mapping, NamedTuple, Optional, Tuple
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -38,10 +46,23 @@ __all__ = [
     "XattnParams",
     "fused_bidirectional_xattn",
     "fused_bidirectional_xattn_plain",
+    "tc_smem_bytes",
+    "tc_workspace_floats",
+    "tensor_core_route",
     "xattn_params_from_state_dict",
 ]
 
 LN_EPS = 1e-5
+_MAX_VIDEO_TOKENS = 16  # csrc/fusion.cuh::kMaxT
+_MAX_SMEM = 227 * 1024
+_MAX_HEADS = 8  # csrc/xattn_tc.cuh::kMaxHeads: a cluster of one block per head
+# csrc/tc_product.cuh, the tensor-core product of K4's and K5's routes: kRows,
+# kMaxCols, kChunk, kRingStages, kXRows, and the shared memory every kernel
+# of those routes starts with (kBaseBytes: X's double-buffered hi and lo
+# chunk blocks, the weight ring), plus 1 KB to align it to the swizzle's
+# atoms.
+_TC_ROWS, _TC_MAX_COLS, _TC_CHUNK, _TC_RING_STAGES, _TC_X_ROWS = 16, 128, 32, 3, 32
+_TC_BASE_BYTES = 4 * _TC_X_ROWS * 128 + _TC_RING_STAGES * _TC_CHUNK * (4 * _TC_MAX_COLS + 16)
 
 # The entry points' tables, in the order of csrc/fusion.cuh's enums.
 TENSOR_SLOTS = (
@@ -243,6 +264,48 @@ def _validate(params, v_tokens, a_tokens, v2a_bias, a2v_bias, num_heads):
             raise ValueError(f"{name} on {t_.device}, v_tokens on {v_tokens.device}")
 
 
+def _x_stride(k: int) -> int:
+    """Row stride of a shared X tile of width k (csrc/tc_product.cuh::x_stride)."""
+    return -(-k // 32) * 32 + 4
+
+
+def tc_smem_bytes(t: int, ta: int, d: int, num_heads: int) -> Dict[str, int]:
+    """Shared memory of each kernel of K5's tensor-core route
+    (`rows_smem_bytes`, `video_smem_bytes`, `audio_smem_bytes` in
+    csrc/xattn_tc.cuh)."""
+    r, dh = _TC_ROWS, d // num_heads
+    floats = {
+        "rows": r * _x_stride(d),
+        "video": t * (3 * _x_stride(dh) + _x_stride(ta) + 4 * _x_stride(d)),
+        "audio": 5 * r * _x_stride(d) + t * (2 * d + 4) + r * num_heads * t,
+    }
+    return {name: 1024 + _TC_BASE_BYTES + 4 * n for name, n in floats.items()}
+
+
+def tc_workspace_floats(b: int, t: int, ta: int, d: int) -> int:
+    """float32 workspace of K5's tensor-core route (csrc/xattn_tc.cuh::
+    carve_work): the v2a keys and values and the a2v queries of the audio
+    tokens, the v2a queries of the video tokens, the a2v keys and values of
+    v', the column sums of a' per 16-row tile of a sample; each piece
+    rounded up to 4 floats."""
+    tiles = -(-ta // _TC_ROWS)
+    sizes = (b * ta * 2 * d, b * ta * d, b * t * d, b * t * 2 * d, b * tiles * d)
+    return sum(-(-n // 4) * 4 for n in sizes)
+
+
+def tensor_core_route(v_tokens: torch.Tensor, a_tokens: torch.Tensor, num_heads: int) -> bool:
+    """True when K5 runs its tensor-core route (csrc/xattn_tc.cuh) on these
+    tokens: T <= 16, d a multiple of 32 up to 128, at most 8 heads (a
+    cluster of one block per head) of a width that is a multiple of 4, and
+    every kernel's shared memory within 227 KB.  Otherwise the CUDA-core
+    kernels of csrc/xattn.cu run.  The shapes alone decide."""
+    t, d = v_tokens.shape[1], v_tokens.shape[2]
+    ta = a_tokens.shape[1]
+    return (t <= _MAX_VIDEO_TOKENS and d % 32 == 0 and d <= 128 and num_heads <= _MAX_HEADS
+            and d % num_heads == 0 and (d // num_heads) % 4 == 0
+            and max(tc_smem_bytes(t, ta, d, num_heads).values()) <= _MAX_SMEM)
+
+
 def fused_bidirectional_xattn(
     params: XattnParams,
     v_tokens: torch.Tensor,  # [B, T, d]
@@ -261,6 +324,16 @@ def fused_bidirectional_xattn(
         )
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
+    return _launch(params, v_tokens, a_tokens, v2a_bias, a2v_bias, num_heads,
+                   tensor_core_route(v_tokens, a_tokens, num_heads))
+
+
+def _launch(params, v_tokens, a_tokens, v2a_bias, a2v_bias, num_heads, tensor_cores: bool):
+    """K5 on the card by the route named: the tensor-core kernels of
+    csrc/xattn_tc.cuh (shapes `tensor_core_route` takes) or the CUDA-core
+    kernels of csrc/xattn.cu (any shape `_validate` takes, within shared
+    memory)."""
+    device = v_tokens.device
     b, t, d = v_tokens.shape
     ta = a_tokens.shape[1]
 
@@ -268,8 +341,14 @@ def fused_bidirectional_xattn(
         return None if x is None else x.float().contiguous()
 
     a_tok = f32(a_tokens)
-    scratch = torch.empty(3, b, ta, d, dtype=torch.float32, device=device)
     out = torch.empty(2, b, d, dtype=torch.float32, device=device)
+    if tensor_cores:
+        work_floats = tc_workspace_floats(b, t, ta, d)
+        work = torch.empty(work_floats, dtype=torch.float32, device=device)
+        scratch = (None, None, None)
+    else:
+        work_floats, work = 0, None
+        scratch = torch.empty(3, b, ta, d, dtype=torch.float32, device=device)
     p = params
     table = PointerTable(
         "fused_bidirectional_xattn", device,
@@ -286,16 +365,16 @@ def fused_bidirectional_xattn(
         },
     )
     table.launch(
-        "emo_xattn",
+        "emo_xattn_tc" if tensor_cores else "emo_xattn",
         tensors={
             "v_in": f32(v_tokens), "bias_v2a": f32(v2a_bias), "bias_a2v": f32(a2v_bias),
             "a_tok": a_tok, "ka": scratch[0], "va": scratch[1], "qa": scratch[2],
-            "out_v": out[0], "out_a": out[1],
+            "out_v": out[0], "out_a": out[1], "work": work,
         },
         ints={
             "B": b, "T": t, "Ta": ta, "d": d, "H": num_heads,
             "bias_mode": BIAS_NONE if v2a_bias is None else BIAS_EXTERNAL,
-            "samples_per_block": 1,
+            "samples_per_block": 1, "work_floats": work_floats,
         },
     )
     fused_bidirectional_xattn.launches += 1

@@ -9,6 +9,7 @@ on the test clips agree within 1e-4 (float32, other summation orders) with
 the same argmax on every clip.
 """
 
+import contextlib
 import dataclasses
 import json
 from pathlib import Path
@@ -243,3 +244,19 @@ def test_gate_prints_the_jax_report(tmp_path, capsys):
     assert report["backend"] == "cpu" and report["epochs"] == 1 and report["fusion"] == "gated"
     assert exit_info.value.code == (0 if report["pass"] else 1)
     assert (root / "pairs.csv").exists() and (root / "outputs" / "best_gated.pt").exists()
+
+
+@pytest.mark.parametrize("fails", [False, True], ids=["returns", "raises"])
+def test_gate_trains_under_deterministic_algorithms_and_restores_the_settings(fails):
+    def flags():
+        return (torch.are_deterministic_algorithms_enabled(),
+                torch.is_deterministic_algorithms_warn_only_enabled(),
+                torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+
+    before = flags()
+    with pytest.raises(RuntimeError) if fails else contextlib.nullcontext():
+        with convergence_gate.deterministic_algorithms():
+            assert flags() == (True, True, True, False)
+            if fails:
+                raise RuntimeError("a failing fit")
+    assert flags() == before

@@ -109,15 +109,27 @@ def test_attention_kernel_matches_plain(cuda, dtype, atol, b, tp, seq):
     assert err <= atol, err
 
 
+K6_TENSOR_CORE = {torch.bfloat16: ("tiled_core_mma", "tiled_proj_mma"),
+                  torch.float32: ("tiled_core_tf32", "tiled_proj_tf32")}
+K6_CUDA_CORE = ("tiled_attn_core", "tiled_out_proj")
+
+
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("b,tp,seq", [(8, 160, 149), (16, 149, 149), (4, 37, 37)])
-def test_tiled_attention_kernel_matches_plain_and_k1_for_every_tile(cuda, dtype, atol, b, tp, seq):
-    """K6: within tolerance of its plain version on every row, the same
-    bits for every tile size, and K1's values below seq_len within the same
-    tolerance (K1 runs both dtypes on the tensor cores at these shapes, K6
-    on CUDA cores: another sum order)."""
-    h = 12
-    args = _sublayer_inputs(b, h, tp, dtype, cuda)
+@pytest.mark.parametrize("b,h,tp,seq,e", [(8, 12, 160, 149, 768), (16, 12, 149, 149, 768),
+                                          (4, 12, 37, 37, 768), (8, 4, 161, 100, 256),
+                                          (4, 8, 37, 37, 256)])
+def test_tiled_attention_kernel_matches_plain_and_k1_for_every_tile(cuda, dtype, atol, b, h, tp,
+                                                                     seq, e):
+    """K6: within tolerance of its plain version on every row (padding rows
+    included), the same bits for every tile size, and K1's values below
+    seq_len within the same tolerance.  Where the head width is 64 (K1's
+    tensor-core route) K6 runs its tensor-core kernels and equals K1 bit for
+    bit below seq_len; a head width of 32 takes its CUDA-core kernels."""
+    from multimodalemotionrecognition_torch.kernels.wavlm_attn_tiled import tensor_core_route
+
+    args = _sublayer_inputs(b, h, tp, dtype, cuda, e=e)
+    tensor_cores = tensor_core_route(args[0], h, seq)
+    assert tensor_cores == (e == 64 * h)
     before = wavlm_attention_sublayer_tiled.launches
     ref = wavlm_attention_sublayer_tiled(1, *args, h, seq)
     want = wavlm_attention_sublayer_tiled_plain(1, *args, h, seq)
@@ -126,10 +138,17 @@ def test_tiled_attention_kernel_matches_plain_and_k1_for_every_tile(cuda, dtype,
     assert torch.isfinite(ref).all()
     assert (ref.float() - want.float()).abs().max().item() <= atol
     assert (ref[:, :seq].float() - k1[:, :seq].float()).abs().max().item() <= atol
+    if tensor_cores:
+        assert torch.equal(ref[:, :seq], k1[:, :seq])
     tiles = [g for g in (2, 4, 8) if b % g == 0]
     for g in tiles:
         assert torch.equal(wavlm_attention_sublayer_tiled(g, *args, h, seq), ref), g
     assert wavlm_attention_sublayer_tiled.launches == before + 1 + len(tiles)
+    names = _kernel_names(lambda: wavlm_attention_sublayer_tiled(2, *args, h, seq))
+    want_names, other = ((K6_TENSOR_CORE[dtype], K6_CUDA_CORE) if tensor_cores
+                         else (K6_CUDA_CORE, K6_TENSOR_CORE[dtype]))
+    assert all(any(w in n for n in names) for w in want_names), names
+    assert not any(o in n for o in other for n in names), names
 
 
 def test_tiled_attention_kernel_refuses_what_it_does_not_take(cuda):
@@ -831,26 +850,77 @@ def test_fused_block_tensor_core_route_refuses_misaligned_towers(cuda, which):
     assert fused_block.launches == before
 
 
+def _xattn_params(d, seed=7):
+    """Random K5 parameters of width d (the fusion block's are 128 wide)."""
+    from multimodalemotionrecognition_torch.kernels import XattnParams
+
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape, scale):
+        return (torch.randn(*shape, generator=g) * scale).to("cuda")
+
+    values = {}
+    for name in XattnParams._fields:
+        kind = name.split("_", 1)[1]
+        if kind == "in_kernel":
+            values[name] = r(d, 3 * d, scale=d ** -0.5)
+        elif kind == "out_kernel":
+            values[name] = r(d, d, scale=d ** -0.5)
+        elif kind == "in_bias":
+            values[name] = r(3 * d, scale=0.1)
+        else:
+            values[name] = r(d, scale=0.1) + (1.0 if kind == "norm_scale" else 0.0)
+    return XattnParams(**values)
+
+
+K5_TENSOR_CORE = ("xa_rows_tc", "xa_video_tc", "xa_audio_tc", "xa_pool")
+K5_CUDA_CORE = ("xattn_audio_proj", "xattn_core")
+
+
 @pytest.mark.parametrize("with_bias", [False, True], ids=["no_bias", "bias"])
-@pytest.mark.parametrize("b,ta", [(8, 149), (3, 37)])
-def test_xattn_kernel_matches_plain(cuda, b, ta, with_bias):
-    model, _, _ = _fusion_block(cuda, "mean", "concat", False, int8=False)
-    params = xattn_params_from_state_dict(model.state_dict(), device=cuda)
+@pytest.mark.parametrize("b,ta,d", [(8, 149, 128), (3, 149, 128), (1, 149, 128), (8, 16, 128),
+                                    (3, 16, 128), (1, 16, 128), (3, 37, 128), (3, 37, 48)])
+def test_xattn_kernel_matches_plain(cuda, b, ta, d, with_bias):
+    """K5 within FUSION_TOL of its plain version, one counted launch a call.
+    At d = 128 the tensor-core route runs (`xattn_tc.cuh`), and a sample's
+    embeddings are the same bits at every B and across runs; d = 48 is
+    outside that route and takes the CUDA-core kernels."""
+    from multimodalemotionrecognition_torch.kernels.xattn import tensor_core_route
+
+    if d == 128:
+        model, _, _ = _fusion_block(cuda, "mean", "concat", False, int8=False)
+        params = xattn_params_from_state_dict(model.state_dict(), device=cuda)
+    else:
+        params = _xattn_params(d)
     g = torch.Generator().manual_seed(5)
-    v = torch.randn(b, 8, 128, generator=g).to(cuda)
-    a = torch.randn(b, ta, 128, generator=g).to(cuda)
-    biases = (None, None)
+    v8 = torch.randn(8, 8, d, generator=g).to(cuda)
+    a8 = torch.randn(8, ta, d, generator=g).to(cuda)
+    biases8 = (None, None)
     if with_bias:
-        biases = ((torch.randn(b, 8, ta, generator=g) * 0.5).to(cuda),
-                  (torch.randn(b, ta, 8, generator=g) * 0.5).to(cuda))
+        biases8 = ((torch.randn(8, 8, ta, generator=g) * 0.5).to(cuda),
+                   (torch.randn(8, ta, 8, generator=g) * 0.5).to(cuda))
+    v, a = v8[:b].contiguous(), a8[:b].contiguous()
+    biases = tuple(None if x is None else x[:b].contiguous() for x in biases8)
+    tensor_cores = tensor_core_route(v, a, 4)
+    assert tensor_cores == (d == 128)
     before = fused_bidirectional_xattn.launches
     got = fused_bidirectional_xattn(params, v, a, *biases, num_heads=4)
     want = fused_bidirectional_xattn_plain(params, v, a, *biases, num_heads=4)
     torch.cuda.synchronize()
     assert fused_bidirectional_xattn.launches == before + 1
     for x, y in zip(got, want):
-        assert x.shape == (b, 128)
+        assert x.shape == (b, d)
         assert (x - y).abs().max().item() <= 1e-4
+    names = _kernel_names(lambda: fused_bidirectional_xattn(params, v, a, *biases, num_heads=4))
+    want_names, other = ((K5_TENSOR_CORE, K5_CUDA_CORE) if tensor_cores
+                         else (K5_CUDA_CORE, K5_TENSOR_CORE))
+    assert all(any(w in n for n in names) for w in want_names), names
+    assert not any(o in n for o in other for n in names), names
+    if tensor_cores:
+        full = fused_bidirectional_xattn(params, v8, a8, *biases8, num_heads=4)
+        again = fused_bidirectional_xattn(params, v, a, *biases, num_heads=4)
+        for x, y, z in zip(got, full, again):
+            assert torch.equal(x, y[:b]) and torch.equal(x, z)
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ audio tokens (odd, as the serving path's 149), tower widths 24 and 40.
 """
 
 import types
+from pathlib import Path
 
 import flax.linen as nn
 import jax
@@ -240,6 +241,53 @@ def test_xattn_wrapper_rejects_bad_inputs():
         fused_bidirectional_xattn(params, v, a[:, :, :-1], num_heads=H)
     with pytest.raises(ValueError, match="num_heads"):
         fused_bidirectional_xattn(params, v, a, num_heads=5)
+
+
+@pytest.mark.parametrize(
+    "t,ta,d,heads,takes",
+    [
+        (8, 149, 128, 4, True),  # the serving shapes
+        (8, 16, 128, 4, True),
+        (16, 1, 32, 8, True),  # the most video tokens and heads, one audio token
+        (8, 149, 96, 8, True),  # a head width of 12
+        (17, 149, 128, 4, False),  # T past 16
+        (8, 149, 48, 4, False),  # d not a multiple of 32
+        (8, 149, 160, 4, False),  # d past 128
+        (8, 149, 128, 16, False),  # more heads than a cluster holds
+        (16, 6000, 128, 4, False),  # the video side's probabilities past shared memory
+    ],
+)
+def test_xattn_tensor_core_route_takes_the_shapes_it_should(t, ta, d, heads, takes):
+    """K5's route rule (`xattn.tensor_core_route`): shape logic only."""
+    from multimodalemotionrecognition_torch.kernels import xattn
+
+    v, a = torch.empty(2, t, d), torch.empty(2, ta, d)
+    assert xattn.tensor_core_route(v, a, heads) is takes
+    smem = xattn.tc_smem_bytes(t, ta, d, heads)
+    assert set(smem) == {"rows", "video", "audio"}
+    assert (max(smem.values()) <= 227 * 1024) or not takes
+    # The workspace: K and V, Q of the audio rows; Q of the video rows; K and
+    # V of v'; the column sums of a' per 16-row tile (each rounded to 4 floats).
+    tiles = -(-ta // 16)
+    assert xattn.tc_workspace_floats(2, t, ta, d) == sum(
+        -(-n // 4) * 4 for n in (2 * ta * 2 * d, 2 * ta * d, 2 * t * d, 2 * t * 2 * d, 2 * tiles * d))
+
+
+def test_xattn_tensor_core_mirrors_follow_the_header():
+    """`xattn.tc_smem_bytes` and `tc_workspace_floats` against the formulas
+    of csrc/xattn_tc.cuh, and the serving shapes' sizes."""
+    from multimodalemotionrecognition_torch.kernels import xattn
+
+    src = (Path(xattn.__file__).resolve().parent / "csrc" / "xattn_tc.cuh").read_text()
+    assert "return 1024 + kBaseBytes + 4 * (size_t)kRows * x_stride(p.d);" in src
+    assert "4 * (size_t)p.T * (3 * x_stride(dh) + x_stride(p.Ta) + 4 * x_stride(p.d));" in src
+    assert ("4 * ((size_t)5 * kRows * x_stride(p.d) + (size_t)p.T * (2 * p.d + 4) +\n"
+            "              (size_t)kRows * p.H * p.T);") in src
+    assert "const size_t sizes[5] = {ra * 2 * d, ra * d, rv * d, rv * 2 * d," in src
+    assert "(size_t)p.B * audio_tiles(p.Ta) * d};" in src
+    assert xattn.tc_smem_bytes(8, 149, 128, 4) == {"rows": 76_544, "video": 93_696, "audio": 120_704}
+    assert xattn.tc_workspace_floats(8, 8, 149, 128) == (
+        8 * 149 * 256 + 8 * 149 * 128 + 64 * 128 + 64 * 256 + 8 * 10 * 128)
 
 
 @pytest.mark.parametrize(

@@ -225,7 +225,9 @@ def test_route_is_decided_by_the_shapes(change, expected):
 
 
 def _constants(names):
-    src = HEADER.read_text()
+    # The product machinery (kThreads ... kBaseBytes) lives in tc_product.cuh,
+    # which the route's header includes and K5's tensor-core route shares.
+    src = HEADER.read_text() + (HEADER.parent / "tc_product.cuh").read_text()
     found = {}
     for name in names:
         hit = re.search(rf"constexpr int {name} = ([^;]+);", src)

@@ -127,6 +127,27 @@ def test_padding_rows_are_computed():
     assert out[:, attn_tile.SEQ:].abs().max() > 0.1  # LayerNorm rows, not zeros
 
 
+@pytest.mark.parametrize(
+    "dtype,e,heads,seq,takes",
+    [
+        (torch.bfloat16, 768, 12, 149, True),  # the experiment's shape
+        (torch.float32, 768, 12, 160, True),
+        (torch.bfloat16, 256, 4, 37, True),
+        (torch.float32, 1024, 16, 1, True),
+        (torch.bfloat16, 768, 12, 161, False),  # more keys than the route holds
+        (torch.float32, 512, 16, 149, False),  # a head width of 32
+        (torch.bfloat16, 1152, 18, 16, False),  # E past the LayerNorm's 1024
+        (torch.float16, 768, 12, 149, False),
+    ],
+)
+def test_tensor_core_route_takes_the_shapes_it_should(dtype, e, heads, seq, takes):
+    """K6's route rule (`wavlm_attn_tiled.tensor_core_route`): K1's
+    tensor-core shapes in either dtype; shape logic only."""
+    from multimodalemotionrecognition_torch.kernels import wavlm_attn_tiled
+
+    assert wavlm_attn_tiled.tensor_core_route(torch.empty(1, 2, e, dtype=dtype), heads, seq) is takes
+
+
 def test_refuses_a_tile_that_does_not_divide_the_batch():
     tensors = _operands("float32")
     with pytest.raises(ValueError, match="g_tile"):
