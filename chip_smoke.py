@@ -221,6 +221,24 @@ Phases (the first failure ends the run with a non-zero exit code):
                6 K3 (+ 1 K4) launches per replica forward.  (c)
                `entry.dryrun_multichip(2)`.  The phase's own seconds.
 
+  15. tensor parallel - the WavLM trunk split over a mesh row (`parallel/
+               tensor.py`), every piece on cuda:0.  (a) `TorchModelRunner` on
+               meshes (1, 2) (1, 3 and 8 clips and a blank-video request)
+               and (2, 2) (8 clips), float32, bfloat16 and int8: against
+               the single-card runner with `fused_wavlm=False` (the same
+               modular attention; 1e-5, 2e-2, 1e-5) and against the kernels
+               runner (1e-3, 2e-2); 6 K3, no K1 and no K4 launches per
+               replica forward; each piece's parameter bytes beside the
+               unsharded model's.  (b) The flagship's stage-2 step at batch
+               16, float32 and bfloat16, WavLM's default rates, tp 2 in one
+               process against tp 1, both with the modular attention: the
+               same LayerDrop draw, 6 K3 and no K1 or K2 per step, the loss
+               within 1e-5 (bf16 3e-2), every gathered trainable gradient
+               within phase 14's bounds; a resume file written under tp 2
+               read under tp 1 bit for bit; step times of tp 1 and tp 2.
+               (c) `entry.dryrun_multichip(4)`: dp 2 x tp 2 on Gloo ranks
+               whose rows share cuda:0.  The phase's own seconds.
+
 The line before the last two is the JSON kernel report; then the card's
 line; the last line is {"ok": true, "device": {...}}.
 
@@ -236,6 +254,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import itertools
 import json
 import re
 import sys
@@ -3002,8 +3021,9 @@ def _dp_step(trainer, state, batch, grads_out: bool, timed: bool = True) -> dict
              if n in trainable and p.grad is not None}
     out = {
         "loss": metrics["loss"], "layers_run": runs[0], "launches": launches,
-        "trainable_layers": sorted(i for i in range(12) if mask[
-            f"audio_model.wavlm.encoder.layers.{i}.attention.q_proj.weight"]),
+        "trainable_layers": sorted(i for i in range(12) if any(
+            on for n, on in mask.items()
+            if n.startswith(f"audio_model.wavlm.encoder.layers.{i}.attention.q_proj."))),
         "stats": {n: b.detach().float().cpu().numpy() for n, b in state.model.named_buffers()
                   if "running" in n},
         # Every rank's gradients are one all-reduce's result: rank 0 sends
@@ -3243,6 +3263,210 @@ def data_parallel(dev, card, tmp):
     return launches, report
 
 
+# --------------------------------------------------------------------------- phase 15: tensor parallel
+
+# The tensor-parallel runner against one device's: float32 and int8 the same
+# modules with the row-parallel sums in another order; bfloat16 rounds the
+# partial products before their sum.  Against the kernels runner, the
+# kernel-vs-plain bounds (PROBS_TOL).
+TP_PROBS_TOL = {"float32": 1e-5, "bfloat16": 2e-2, "int8": 1e-5}
+TP_TIMED_STEPS = 3
+
+
+def _tp_runner_counters():
+    from multimodalemotionrecognition_torch.kernels import fused_block
+
+    return {**_dp_counters(), "fused_block": fused_block}
+
+
+def _tp_bytes(model) -> dict:
+    """Parameter and buffer bytes of a tensor-parallel model: each piece
+    index's own, the replicated rest (on the row's first device) and the
+    whole."""
+    pieces, replicated = {}, 0
+    for name, t in list(model.named_parameters()) + list(model.named_buffers()):
+        found = re.search(r"\.shards\.(\d+)\.", name)
+        if found:
+            pieces[int(found[1])] = pieces.get(int(found[1]), 0) + t.numel() * t.element_size()
+        else:
+            replicated += t.numel() * t.element_size()
+    return {"replicated": replicated, "pieces": pieces}
+
+
+def _tp_trainer(dtype, dev, tp, tmp):
+    from multimodalemotionrecognition_torch.config import ModelConfig, TrainConfig
+    from multimodalemotionrecognition_torch.train import EmotionTrainer
+
+    trainer = EmotionTrainer(
+        ModelConfig(fusion="xattn", use_wavlm=True, compute_dtype=dtype,
+                    wavlm_geometry={"fused_attention": False}),
+        TrainConfig(two_stage_training=True, seed=SEED, output_dir=str(tmp), mesh_shape=(1, tp)),
+        device=[dev] * tp)
+    return trainer, trainer.init_state()
+
+
+def tensor_parallel(dev, card, tmp):
+    """Phase 15 -> (launch counts of its main paths, report)."""
+    from multimodalemotionrecognition_torch.entry import dryrun_multichip
+    from multimodalemotionrecognition_torch.parallel import gather_params, make_mesh
+    from multimodalemotionrecognition_torch.runtime.runner import TorchModelRunner
+
+    t_phase = time.perf_counter()
+    report = {"runner": {}, "train": {}}
+    launches = {}
+    counters = _tp_runner_counters()
+
+    # (a) The runners: one replica over (cuda:0, cuda:0), and two over a (2, 2) mesh.
+    ckpt = Path(tmp) / "flagship.pt"
+    _, video, audio = make_checkpoint(ckpt)
+    for label, options in (("float32", {}), ("bfloat16", {"compute_dtype": "bfloat16"}),
+                           ("int8", {"quantize_int8": True})):
+        dtype = options.get("compute_dtype", "float32")
+        plain = TorchModelRunner(ckpt, device=dev, device_normalize=True, fused_wavlm=False, **options)
+        kernels = TorchModelRunner(ckpt, device=dev, device_normalize=True, **options)
+        tps = {shape: TorchModelRunner(ckpt, device=dev, device_normalize=True,
+                                       mesh=make_mesh(shape, [dev] * (shape[0] * shape[1])), **options)
+               for shape in ((1, 2), (2, 2))}
+        requests = {(1, 2): (1, 3, 8, "blank"), (2, 2): (8,)}
+        for shape, runner in tps.items():
+            for n in requests[shape]:  # warm: cuDNN's choice for each bucket
+                (runner.predict_probs_blank_video(audio[:3]) if n == "blank"
+                 else runner.predict_probs(video[:n], audio[:n]))
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            got, forwards = {}, 0
+            for n in requests[shape]:
+                got[n] = (runner.predict_probs_blank_video(audio[:3]) if n == "blank"
+                          else runner.predict_probs(video[:n], audio[:n]))
+                forwards += len(runner.replicas)
+            torch.cuda.synchronize()
+            counted = {name: fn.launches for name, fn in counters.items()}
+            expect = {"wavlm_attention_sublayer": 0, "fused_conv_layer": 6 * forwards,
+                      "wavlm_attention_sublayer_backward": 0, "fused_block": 0}
+            for name, count in counted.items():
+                launches[name] = launches.get(name, 0) + count
+            errs = {}
+            for n, probs in got.items():
+                rows = 3 if n == "blank" else n
+                want_plain = (plain.predict_probs_blank_video(audio[:3]) if n == "blank"
+                              else plain.predict_probs(video[:n], audio[:n]))
+                want_kernels = (kernels.predict_probs_blank_video(audio[:3]) if n == "blank"
+                                else kernels.predict_probs(video[:n], audio[:n]))
+                if probs.shape != (rows, 8) or not np.isfinite(probs).all():
+                    raise AssertionError(f"tensor parallel {label} {shape} n={n}: output {probs.shape}")
+                errs[n] = (float(np.abs(probs - want_plain).max()),
+                           float(np.abs(probs - want_kernels).max()))
+            worst_plain = max(e[0] for e in errs.values())
+            worst_kernels = max(e[1] for e in errs.values())
+            print(f"tensor parallel runner {label} mesh {shape} (buckets {runner.batch_buckets}): "
+                  f"requests {list(got)} against the modular single-card runner within "
+                  f"{worst_plain:.3e} (tol {TP_PROBS_TOL[label]}), against the kernels runner within "
+                  f"{worst_kernels:.3e} (tol {PROBS_TOL[dtype]}); launches {counted} over "
+                  f"{forwards} replica forwards [{card}]")
+            if counted != expect or worst_plain > TP_PROBS_TOL[label] or worst_kernels > PROBS_TOL[dtype]:
+                raise AssertionError(f"tensor parallel runner {label} {shape}: errors {errs}, "
+                                     f"launches {counted}, expected {expect}")
+            report["runner"][f"{label}_{shape[0]}x{shape[1]}"] = {
+                "max_abs_err_plain": worst_plain, "max_abs_err_kernels": worst_kernels,
+                "launches": counted, "forwards": forwards}
+        size = _tp_bytes(tps[1, 2].forward_module.model)
+        whole = sum(t.numel() * t.element_size() for t in itertools.chain(
+            kernels.model.parameters(), kernels.model.buffers()))
+        report["runner"][f"{label}_bytes"] = {**size, "unsharded": whole}
+        print(f"tensor parallel runner {label}: parameter and buffer bytes, piece 0 "
+              f"{size['pieces'][0] / 2**20:.1f} MiB + replicated {size['replicated'] / 2**20:.1f} "
+              f"MiB on the row's first device, piece 1 {size['pieces'][1] / 2**20:.1f} MiB; the "
+              f"unsharded model {whole / 2**20:.1f} MiB")
+        del plain, kernels, tps
+        torch.cuda.empty_cache()
+
+    # (b) The flagship's stage-2 step, tp 2 in this process against tp 1, both
+    # with the modular attention (K1 and K2 need a layer's every head).
+    batch = _train_batches(1, SEED + 15)[0]
+    steps = {}
+    for dtype in ("float32", "bfloat16"):
+        for tp in (1, 2):
+            trainer, state = _tp_trainer(dtype, dev, tp, tmp)
+            step = _dp_step(trainer, state, batch, grads_out=True, timed=False)
+            times = []
+            mask, lrs = trainer.trainable_mask(2), trainer.lr_tree(2, {})
+            for _ in range(TP_TIMED_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.run_epoch(state, [batch], True, mask, lrs)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            step["step_ms"] = times
+            step["grads"] = {n: g.numpy() for n, g in gather_params(
+                {n: torch.from_numpy(g) for n, g in step["grads"].items()}).items()}
+            if dtype == "float32" and tp == 2:
+                # A resume file written under tp 2, read under tp 1.
+                resume = Path(tmp) / "tp_resume"
+                trainer.save_resume_state(resume, state, epoch=2, best_f1=0.0)
+                saved = torch.load(resume / "resume.pt", map_location="cpu", weights_only=False)
+                reader, _ = _tp_trainer(dtype, dev, 1, tmp)
+                restored, *_ = reader.restore_resume_state(resume)
+                same = all(torch.equal(restored.model.state_dict()[k].cpu(), v)
+                           for k, v in saved["model"].items())
+                same &= all(torch.equal(getattr(restored.opt_state, key)[k].cpu(), v)
+                            for key in ("mu", "nu") for k, v in saved["opt_state"][key].items())
+                same &= not any(".shards." in k for k in saved["model"])
+                print(f"tensor parallel: a resume file written under tp 2 ({len(saved['model'])} "
+                      f"tensors, {len(saved['opt_state']['mu'])} moments) read under tp 1 bit for "
+                      f"bit: {same}")
+                if not same:
+                    raise AssertionError("tensor parallel: the resume file read under tp 1 differs")
+                report["train"]["resume_tp2_to_tp1_exact"] = same
+                del reader, restored
+            steps[dtype, tp] = step
+            del trainer, state
+            torch.cuda.empty_cache()
+    bf16_move = _grad_errors(steps["bfloat16", 1]["grads"], steps["float32", 1]["grads"])
+    for dtype in ("float32", "bfloat16"):
+        one, two = steps[dtype, 1], steps[dtype, 2]
+        tol = GRAD_TOL[getattr(torch, dtype)]
+        bound = ({n: DP_VIDEO_CAP if n.startswith("video_model.") else tol for n in bf16_move}
+                 if dtype == "float32" else
+                 {n: min(DP_BF16_CAP, max(tol, DP_BF16_MOVE_FACTOR * m)) for n, m in bf16_move.items()})
+        grad_err = _grad_errors(two["grads"], one["grads"])
+        worst = max(grad_err, key=grad_err.get)
+        over = {n: (e, bound[n]) for n, e in grad_err.items() if e > bound[n]}
+        loss_err = abs(two["loss"] - one["loss"])
+        ran = one["layers_run"]
+        expect = {"wavlm_attention_sublayer": 0, "fused_conv_layer": 6,
+                  "wavlm_attention_sublayer_backward": 0}
+        print(f"tensor parallel train {dtype}: loss tp 2 {two['loss']:.6f}, tp 1 {one['loss']:.6f} "
+              f"(|diff| {loss_err:.2e}, tol {DP_LOSS_TOL[dtype]}); layers run {two['layers_run']} "
+              f"(tp 1 {ran}); launches tp 2 {two['launches']}, tp 1 {one['launches']}; "
+              f"{len(grad_err)} trainable gradients within {grad_err[worst]:.2e} of each largest "
+              f"entry (worst {worst}; tol {tol}, the video tower {DP_VIDEO_CAP} in float32); step ms "
+              f"tp 1 {np.median(one['step_ms']):.1f}, tp 2 {np.median(two['step_ms']):.1f} "
+              f"(both pieces on one card) [{card}]")
+        if (two["layers_run"] != ran or two["launches"] != expect or one["launches"] != expect
+                or loss_err > DP_LOSS_TOL[dtype] or over or set(grad_err) != set(one["grads"])
+                or set(two["grads"]) != set(one["grads"])):
+            raise AssertionError(f"tensor parallel train {dtype}: layers {two['layers_run']} / {ran}, "
+                                 f"launches {two['launches']}, loss error {loss_err}, over {over}")
+        for name, count in two["launches"].items():
+            launches[name] = launches.get(name, 0) + count
+        report["train"][dtype] = {
+            "loss_tp1": one["loss"], "loss_tp2": two["loss"], "layers_run": ran,
+            "launches_tp2": two["launches"], "grad_max_rel_err": grad_err[worst], "grad_worst": worst,
+            "grad_rel_err": grad_err, "step_ms_tp1": float(np.median(one["step_ms"])),
+            "step_ms_tp2": float(np.median(two["step_ms"]))}
+    del steps
+
+    # (c) The dry run on four devices: tp 2, dp 2.
+    t0 = time.perf_counter()
+    report["dryrun"] = dryrun_multichip(4, device=dev)
+    report["dryrun"]["seconds"] = time.perf_counter() - t0
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"tensor parallel: phase 15 in {report['seconds']:.1f} s (the dry run "
+          f"{report['dryrun']['seconds']:.1f} s) [{card}]")
+    return launches, report
+
+
 def _grad_errors(got: dict, want: dict) -> dict:
     """Each leaf's max |got - want| as a share of its scale leaf's largest
     entry in `want`."""
@@ -3431,6 +3655,8 @@ def main() -> int:
         face_launches, face_report = blazeface_phase(dev, card, ckpt, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         dp_launches, dp_report = data_parallel(dev, card, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        tp_launches, tp_report = tensor_parallel(dev, card, Path(tmp))
 
     csrc = "multimodalemotionrecognition_torch/kernels/csrc/"
     ops = "multimodalemotionrecognition_tpu/ops/"
@@ -3509,6 +3735,11 @@ def main() -> int:
         entry["launches_data_parallel"] = dp_launches[entry["name"]]
         if entry["launches_data_parallel"] < 1:
             raise AssertionError(f"{entry['name']} was not launched on phase 14's path")
+    # ... and phase 15's tensor-parallel paths: K3 alone (the replicated conv
+    # layers) in the runners' replica forwards and the train steps.
+    kernels[1]["launches_tensor_parallel"] = tp_launches["fused_conv_layer"]
+    if kernels[1]["launches_tensor_parallel"] < 1:
+        raise AssertionError("fused_conv_layer was not launched on phase 15's path")
     kernels[0]["train_shapes"] = k1_train
     kernels[1]["train_shapes"] = {f"{name}_b16": rep for name, rep in k3_train.items()}
     kernels[4]["variants"] = k2
@@ -3525,7 +3756,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "serve": perf, "serve_stack": stack_report,
                       "families": family_perf, "bench": bench_report, "train": train_report,
                       "export": export_report, "blazeface": face_report,
-                      "data_parallel": dp_report, "card": card}))
+                      "data_parallel": dp_report, "tensor_parallel": tp_report, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -241,8 +241,9 @@ class TrainConfig:
     and they have no effect here: PyTorch frees and reuses buffers itself,
     and the optimizer runs `torch._foreach_*` passes over the trainable
     leaves.  `mesh_shape` (data, model) sets the data-parallel size over
-    the ranks of a `torch.distributed` group (None or data 0: every rank);
-    model > 1 (tensor parallelism) raises in `EmotionTrainer`.
+    the ranks of a `torch.distributed` group (None or data 0: every rank)
+    and the model axis: with model > 1 each rank splits the WavLM trunk
+    over its row of that many devices (`parallel/tensor.py`).
     """
 
     epochs: int = 20
@@ -319,8 +320,9 @@ class ServeConfig:
     # Fixed batch shapes for the dynamic batcher.
     batch_buckets: Tuple[int, ...] = (1, 2, 4, 8)
     # Multi-chip inference: (data, model) mesh shape, e.g. (8, 1) to shard
-    # request batches over 8 chips.  None = single device (the default;
-    # matches the reference's single-device worker).
+    # request batches over 8 chips, or (4, 2) for 4 replicas whose WavLM
+    # trunks each span 2 (`EMO_MESH_SHAPE=4,2`).  None = single device (the
+    # default; matches the reference's single-device worker).
     mesh_shape: Optional[Tuple[int, int]] = None
     # Streaming (backend/app/config.py:16-19)
     stream_window_sec: float = 3.0

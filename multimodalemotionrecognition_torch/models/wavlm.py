@@ -29,6 +29,22 @@ same function as computing it and keeping the input).  The first
 per layer call from the host side of the "dropout" stream; K3 runs only
 when `fused_train_conv` says the feature extractor is frozen.
 
+Tensor parallelism (`parallel/tensor.py::shard_module_`): each encoder
+layer's q/k/v and FFN up-projection become column-parallel pieces and its
+out-projection and FFN down-projection row-parallel ones over a mesh row.
+Each piece holds H / tp whole heads: the gate is computed for every head
+on the row's first device and each piece takes its heads' rows of it and
+of the layer-0 relative-position bias; the row-parallel sums add their
+bias once, and the residuals, LayerNorms and the hidden dropout run after
+the sum there.  The attention-probability and activation dropouts are
+drawn at full width and sliced (`dropout_pieces`), so every draw of a
+train step is the one-device draw.  Where the heads do not split (E
+divides by tp, H does not) the pieces' q/k/v are joined on the first
+device and each piece gets its context columns back.  K1 fuses the
+out-projection and the LayerNorm over every head, so under tensor
+parallelism `fused_attention="auto"` takes the modular sublayer and True
+raises; K3 runs as before, its layers replicated.
+
 L0 (k=10, stride 5, one input channel) and its GroupNorm stay `F.conv1d`
 plus float32 statistics, as they were plain XLA in the JAX package.  The
 JAX package's TPU workarounds are not carried over: the kernels take
@@ -61,8 +77,10 @@ from multimodalemotionrecognition_torch.ops.stochastic import (
     RngStreams,
     draw_rows,
     dropout,
+    dropout_pieces,
     row_offset,
 )
+from multimodalemotionrecognition_torch.parallel.tensor import ColumnParallelLinear
 
 __all__ = ["WavLMAudioEncoder", "WavLMAttentionSelf", "WavLMEncoderLayer", "WavLMModel"]
 
@@ -99,6 +117,39 @@ def _use_kernel(flag, x: torch.Tensor) -> bool:
     return bool(flag)
 
 
+def _attention_kernel(flag, x: torch.Tensor, tensor_parallel: bool) -> bool:
+    """`_use_kernel` for K1.  K1 needs every head of a layer and the whole
+    out-projection on one device: under tensor parallelism "auto" takes the
+    modular sublayer and True raises (nothing reroutes quietly)."""
+    if tensor_parallel:
+        if flag != "auto" and flag:
+            raise ValueError("fused_attention=True under tensor parallelism: the attention "
+                             "kernel (K1) needs every head of a layer on one device")
+        return False
+    return _use_kernel(flag, x)
+
+
+def _heads(x: torch.Tensor, h: int) -> torch.Tensor:
+    """[B, T, h * dh] -> [B, h, T, dh]."""
+    b, t, c = x.shape
+    return x.view(b, t, h, c // h).transpose(1, 2)
+
+
+def _probs(q, k, gate, position_bias, h: int) -> torch.Tensor:
+    """The attention probabilities [B, h, T, T] in float32 of the h heads
+    of q (scaled) and k [B, T, h * dh], with the gated relative-position
+    bias (gate [B, h, T, 1], position_bias [h, T, T])."""
+    scores = torch.matmul(_heads(q, h).float(), _heads(k, h).float().transpose(-1, -2))
+    scores = scores + (gate * position_bias[None].to(gate.dtype)).float()
+    return torch.softmax(scores, dim=-1)
+
+
+def _context(attn, v, h: int) -> torch.Tensor:
+    """P . V of the h heads, back to [B, T, h * dh]."""
+    b, _, t, _ = attn.shape
+    return torch.matmul(attn, _heads(v, h)).transpose(1, 2).reshape(b, t, -1)
+
+
 class WavLMAttentionSelf(nn.Module):
     """WavLM self-attention with gated relative position bias."""
 
@@ -125,41 +176,75 @@ class WavLMAttentionSelf(nn.Module):
         values = self.rel_attn_embed(torch.from_numpy(buckets).to(device))  # [T, T, H]
         return values.permute(2, 0, 1)
 
-    def projections(self, hidden: torch.Tensor):
-        """-> (q * dh^-0.5, k, v) in [B, T, E] and the gate [B, H, T, 1]
-        (HF WavLMAttention: a per-head scalar per query position computed
-        from the raw layer input)."""
+    @property
+    def tensor_parallel(self) -> bool:
+        """Whether `shard_module_` split this layer's heads over a mesh row."""
+        return isinstance(self.q_proj, ColumnParallelLinear)
+
+    def gate(self, hidden: torch.Tensor) -> torch.Tensor:
+        """The gate [B, H, T, 1] of every head (HF WavLMAttention: a per-head
+        scalar per query position computed from the raw layer input)."""
         b, t, e = hidden.shape
         h = self.num_heads
-        dh = e // h
-        proj = self.gru_rel_pos_linear(hidden.view(b, t, h, dh).transpose(1, 2))
+        proj = self.gru_rel_pos_linear(hidden.view(b, t, h, e // h).transpose(1, 2))
         gates = torch.sigmoid(proj.view(b, h, t, 2, 4).sum(-1))
         gate_a, gate_b = gates[..., 0:1], gates[..., 1:2]
-        gate = gate_a * (gate_b * self.gru_rel_pos_const - 1.0) + 2.0
+        return gate_a * (gate_b * self.gru_rel_pos_const - 1.0) + 2.0
+
+    def projections(self, hidden: torch.Tensor):
+        """-> (q * dh^-0.5, k, v) in [B, T, E] and the gate [B, H, T, 1]."""
+        dh = hidden.shape[-1] // self.num_heads
         q = self.q_proj(hidden) * (dh**-0.5)
-        return q, self.k_proj(hidden), self.v_proj(hidden), gate
+        return q, self.k_proj(hidden), self.v_proj(hidden), self.gate(hidden)
 
     def forward(
         self, hidden: torch.Tensor, position_bias: torch.Tensor,
         dropout_generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        """Modular path: -> attention output [B, T, E] (before the residual).
-        A generator turns the attention-probability dropout on (training)."""
-        b, t, e = hidden.shape
+        """Modular path: -> attention output [B, T, E] (before the residual),
+        on `hidden`'s device.  A generator turns the attention-probability
+        dropout on (training)."""
+        if self.tensor_parallel:
+            return self._forward_pieces(hidden, position_bias, dropout_generator)
         h = self.num_heads
-        dh = e // h
         q, k, v, gate = self.projections(hidden)
-
-        def heads(x):
-            return x.view(b, t, h, dh).transpose(1, 2)
-
-        scores = torch.matmul(heads(q).float(), heads(k).float().transpose(-1, -2))
-        scores = scores + (gate * position_bias[None].to(gate.dtype)).float()
-        attn = torch.softmax(scores, dim=-1).to(v.dtype)
+        attn = _probs(q, k, gate, position_bias, h).to(v.dtype)
         if dropout_generator is not None:
             attn = dropout(attn, self.config.attention_dropout, dropout_generator)
-        out = torch.matmul(attn, heads(v)).transpose(1, 2).reshape(b, t, e)
-        return self.out_proj(out)
+        return self.out_proj(_context(attn, v, h))
+
+    def _forward_pieces(self, hidden, position_bias, gen):
+        """`forward` with the heads split over a mesh row: piece i attends
+        with heads [i H/tp, (i+1) H/tp) on its device; the row-parallel
+        out-projection sums the pieces on `hidden`'s device."""
+        e, h = hidden.shape[-1], self.num_heads
+        devices = self.q_proj.devices
+        tp = len(devices)
+        gate = self.gate(hidden)
+        xs = [hidden.to(d) for d in devices]
+        qs = [q * ((e // h) ** -0.5) for q in self.q_proj(xs)]
+        ks, vs = self.k_proj(xs), self.v_proj(xs)
+        rate = self.config.attention_dropout
+        if h % tp:
+            # Heads straddle the pieces: attend on the first device, then
+            # give each piece its columns of the context.
+            q, k, v = (torch.cat([p.to(hidden.device) for p in parts], dim=-1)
+                       for parts in (qs, ks, vs))
+            attn = _probs(q, k, gate, position_bias, h).to(v.dtype)
+            if gen is not None:
+                attn = dropout(attn, rate, gen)
+            ctx = _context(attn, v, h)
+            width = e // tp
+            return self.out_proj([ctx[..., i * width:(i + 1) * width].to(d)
+                                  for i, d in enumerate(devices)])
+        local = h // tp
+        attns = []
+        for i, (q, k, v, device) in enumerate(zip(qs, ks, vs, devices)):
+            heads = slice(i * local, (i + 1) * local)
+            attns.append(_probs(q, k, gate[:, heads].to(device),
+                                position_bias[heads].to(device), local).to(v.dtype))
+        attns = dropout_pieces(attns, 1, rate, gen)
+        return self.out_proj([_context(a, v, local) for a, v in zip(attns, vs)])
 
 
 class _FeedForward(nn.Module):
@@ -172,10 +257,18 @@ class _FeedForward(nn.Module):
     def forward(
         self, x: torch.Tensor, dropout_generator: Optional[torch.Generator] = None
     ) -> torch.Tensor:
-        x = F.gelu(self.intermediate_dense(x))
+        up = self.intermediate_dense
+        if isinstance(up, ColumnParallelLinear):
+            # Tensor parallel: each piece's columns of the activation; the
+            # activation dropout drawn at full width and sliced.
+            x = [F.gelu(h) for h in up([x.to(d) for d in up.devices])]
+            x = dropout_pieces(x, -1, self.config.activation_dropout, dropout_generator)
+        else:
+            x = F.gelu(up(x))
+            if dropout_generator is not None:
+                x = dropout(x, self.config.activation_dropout, dropout_generator)
         if dropout_generator is None:
             return self.output_dense(x)
-        x = dropout(x, self.config.activation_dropout, dropout_generator)
         return dropout(self.output_dense(x), self.config.hidden_dropout, dropout_generator)
 
 
@@ -210,7 +303,10 @@ class WavLMEncoderLayer(nn.Module):
         and cast, instead of on every forward: for serving, where the
         weights no longer change.  Moving or casting the module afterwards
         drops the cache; a train-mode forward, or one that records a
-        gradient for these weights, never reads it."""
+        gradient for these weights, never reads it.  Under tensor
+        parallelism K1 does not run and nothing is made."""
+        if self.attention.tensor_parallel:
+            return
         with torch.no_grad():
             self._k1_operands = self._make_k1_operands()
 
@@ -245,8 +341,8 @@ class WavLMEncoderLayer(nn.Module):
         gen = rng.device("dropout") if train else None
         if position_bias is None:
             position_bias = self.attention.relative_position_bias(t, hidden.device)
-        if fused is None:
-            fused = _use_kernel(cfg.fused_attention, hidden)
+        fused = _attention_kernel(cfg.fused_attention if fused is None else fused, hidden,
+                                  self.attention.tensor_parallel)
         if fused:
             attn = self.attention
             q, k, v, gate = attn.projections(hidden)
@@ -467,7 +563,8 @@ class WavLMModel(nn.Module):
         # first `fused_train_layers` (the trainer sets the whole stack).
         n_layers = len(self.encoder.layers)
         n_fused = 0
-        if _use_kernel(cfg.fused_attention, x):
+        tensor_parallel = any(layer.attention.tensor_parallel for layer in self.encoder.layers)
+        if _attention_kernel(cfg.fused_attention, x, tensor_parallel):
             n_fused = min(max(0, cfg.fused_train_layers), n_layers) if train else n_layers
         position_bias = None
         self.layers_run = []

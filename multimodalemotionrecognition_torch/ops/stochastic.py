@@ -17,15 +17,15 @@ attention kernel's dropout seed), so neither waits for the device.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
 from multimodalemotionrecognition_torch.parallel.distributed import current_shard
 
 __all__ = [
-    "RNG_STREAMS", "RngStreams", "draw_rows", "drop_path", "dropout", "mix_noise_snr",
-    "modality_dropout_mask", "row_offset", "spec_augment",
+    "RNG_STREAMS", "RngStreams", "draw_rows", "drop_path", "dropout", "dropout_pieces",
+    "mix_noise_snr", "modality_dropout_mask", "row_offset", "spec_augment",
 ]
 
 RNG_STREAMS = (
@@ -92,14 +92,41 @@ def row_offset(rows: int) -> int:
     return current_shard().rank * rows
 
 
+def _keep(shape: Sequence[int], rate: float, generator: torch.Generator, device) -> torch.Tensor:
+    """The bool mask of the elements dropout keeps, drawn on `device`."""
+    return draw_rows(lambda s: torch.rand(s, generator=generator, device=device), shape) >= rate
+
+
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
     """Elementwise dropout: kept with probability 1 - rate, scaled by 1 / (1 - rate)."""
     if rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = draw_rows(lambda s: torch.rand(s, generator=generator, device=x.device), x.shape) >= rate
-    return x * (keep.to(x.dtype) / (1.0 - rate))
+    return x * (_keep(x.shape, rate, generator, x.device).to(x.dtype) / (1.0 - rate))
+
+
+def dropout_pieces(
+    parts: Sequence[torch.Tensor], dim: int, rate: float, generator: Optional[torch.Generator]
+) -> List[torch.Tensor]:
+    """`dropout` of the tensor that `parts` (on any devices) concatenate
+    along `dim`, without the concatenation: the mask is drawn at the whole
+    tensor's shape on the generator's device, as `dropout` of the whole
+    draws it there, and each part takes its slice.  The generator advances
+    as it would for the whole tensor (tensor parallelism: `models/wavlm.py`)."""
+    if rate <= 0.0 or generator is None:
+        return list(parts)
+    if rate >= 1.0:
+        return [torch.zeros_like(p) for p in parts]
+    shape = list(parts[0].shape)
+    shape[dim] = sum(p.shape[dim] for p in parts)
+    keep = _keep(shape, rate, generator, generator.device)
+    out, start = [], 0
+    for p in parts:
+        piece = keep.narrow(dim, start, p.shape[dim]).to(p.device)
+        out.append(p * (piece.to(p.dtype) / (1.0 - rate)))
+        start += p.shape[dim]
+    return out
 
 
 def drop_path(

@@ -10,10 +10,13 @@ step needs:
     torchrun's environment (`RANK`, `WORLD_SIZE`, `LOCAL_RANK`,
     `MASTER_ADDR`, `MASTER_PORT`); without it, it is a no-op that returns
     False, as JAX's is without `JAX_COORDINATOR_ADDRESS`.
-  * `rank`, `world_size`, `local_device`.
+  * `rank`, `world_size`, `local_device`, and `local_row`, the devices of
+    this rank's mesh row under tensor parallelism (a rank owns a row: its
+    model axis runs inside the process, `parallel/tensor.py`).
   * `launch` spawns `world_size` ranks on `torch.multiprocessing` (tests,
     `chip_smoke.py`, `train --mesh_data N` started alone), each on the
-    device it is given, and returns what each rank's function returned.
+    device, or the mesh row of devices, it is given, and returns what each
+    rank's function returned.
   * `all_reduce_sum` and `all_gather_rows`, differentiable collectives
     (`torch.autograd.Function`s over `torch.distributed`), which train-mode
     BatchNorm and the CLIP alignment loss use to see the global batch.
@@ -22,7 +25,10 @@ step needs:
 
 Backends: NCCL across distinct cards, Gloo only where the caller names it
 (the CPU, or two ranks on one card: NCCL refuses that, Gloo stages its CUDA
-collectives through the host).  Nothing switches backend quietly, a rank
+collectives through the host).  With rows, NCCL needs each rank's cards to
+be its own; a collective of a row's tensors runs per device
+(`train/trainer.py::reduce_gradients`), so the ranks' rows must list their
+devices in the same pattern.  Nothing switches backend quietly, a rank
 asked for a card that is not there raises, and a failed collective raises.
 """
 
@@ -37,7 +43,7 @@ import queue
 import socket
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -52,6 +58,7 @@ __all__ = [
     "is_multi_host",
     "launch",
     "local_device",
+    "local_row",
     "maybe_initialize_distributed",
     "rank",
     "world_size",
@@ -94,16 +101,41 @@ def local_device(device_type: str = "cuda") -> torch.device:
     return torch.device("cuda", index)
 
 
-def _check_backend(backend: str, devices: Sequence[torch.device]) -> None:
+def local_row(tp: int, device_type: str = "cuda") -> Tuple[torch.device, ...]:
+    """The `tp` devices of this rank's mesh row: cards LOCAL_RANK * tp ..
+    LOCAL_RANK * tp + tp - 1 (LOCAL_RANK 0 without torchrun's environment),
+    or the CPU `tp` times.  A rank whose cards are not all there raises (to
+    share one card, pass the row itself, e.g. `["cuda:0"] * 2`)."""
+    if device_type == "cpu":
+        return (torch.device("cpu"),) * tp
+    if device_type != "cuda":
+        raise ValueError(f"local_row: device type {device_type!r} is neither 'cuda' nor 'cpu'")
+    first = int(os.environ.get("LOCAL_RANK", "0")) * tp
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if first + tp > count:
+        raise RuntimeError(f"a mesh row of {tp} cards from cuda:{first} finds {count} CUDA card(s)")
+    return tuple(torch.device("cuda", first + i) for i in range(tp))
+
+
+def _row(device) -> Tuple[torch.device, ...]:
+    """A rank's device or mesh row as a tuple of devices."""
+    if isinstance(device, (list, tuple)):
+        return tuple(torch.device(d) for d in device)
+    return (torch.device(device),)
+
+
+def _check_backend(backend: str, devices: Sequence[Any]) -> None:
+    """`devices`: one device, or one mesh row of devices, per rank."""
     if backend not in _BACKENDS:
         raise ValueError(f"backend must be one of {_BACKENDS}; got {backend!r}")
     if backend == "nccl":
-        if any(d.type != "cuda" for d in devices):
+        rows = [_row(d) for d in devices]
+        if any(d.type != "cuda" for row in rows for d in row):
             raise ValueError("the NCCL backend takes CUDA devices only (name 'gloo' for the CPU)")
-        indices = [d.index for d in devices]
-        if len(set(indices)) != len(indices):
+        cards = [{d.index or 0 for d in row} for row in rows]
+        if sum(map(len, cards)) != len(set().union(*cards)):
             raise ValueError(
-                f"NCCL refuses two ranks on one card ({[str(d) for d in devices]}); "
+                f"NCCL refuses two ranks on one card ({[str(d) for row in rows for d in row]}); "
                 "name the 'gloo' backend for that")
 
 
@@ -245,11 +277,13 @@ def _free_port() -> int:
 
 
 def _rank_main(fn, rank_, world, backend, device, port, args, results, timeout_s):
-    """One spawned rank: its group, then fn(rank, world, device, *args)."""
+    """One spawned rank: its group, then fn(rank, world, device, *args)
+    (`device` a tuple of devices for a mesh row, the first one current)."""
     try:
-        device = torch.device(device)
-        if device.type == "cuda":
-            torch.cuda.set_device(device)
+        device = tuple(map(torch.device, device)) if isinstance(device, tuple) else torch.device(device)
+        first = device[0] if isinstance(device, tuple) else device
+        if first.type == "cuda":
+            torch.cuda.set_device(first)
         # A collective that waits past this raises (at most half an hour).
         dist.init_process_group(
             backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank_, world_size=world,
@@ -265,6 +299,11 @@ def _rank_main(fn, rank_, world, backend, device, port, args, results, timeout_s
         raise SystemExit(1)
 
 
+def _spawnable(device):
+    """A device or a row as strings (what a spawned process unpickles)."""
+    return tuple(map(str, device)) if isinstance(device, tuple) else str(device)
+
+
 def launch(
     fn: Callable,
     world_size: int,
@@ -275,26 +314,29 @@ def launch(
 ) -> List[Any]:
     """Spawn `world_size` ranks, rank r on `devices[r]` in a group of
     `backend` on a free local port, each calling fn(r, world_size, device,
-    *args).  -> fn's results by rank (picklable values: move tensors to the
-    CPU).  `fn` must be importable by name (a module's top-level function).
-    If a rank fails, every rank is stopped and its traceback raised; past
-    `timeout_s` the same with TimeoutError."""
-    devices = [torch.device(d) for d in devices]
+    *args).  `devices[r]` is a device, or a sequence of devices (the rank's
+    mesh row under tensor parallelism), which fn gets as a tuple.  -> fn's
+    results by rank (picklable values: move tensors to the CPU).  `fn` must
+    be importable by name (a module's top-level function).  If a rank
+    fails, every rank is stopped and its traceback raised; past `timeout_s`
+    the same with TimeoutError."""
+    devices = [_row(d) if isinstance(d, (list, tuple)) else torch.device(d) for d in devices]
     if len(devices) != world_size or world_size < 1:
         raise ValueError(f"launch: {len(devices)} devices for {world_size} ranks")
     _check_backend(backend, devices)
-    if any(d.type == "cuda" for d in devices):
+    flat = [d for entry in devices for d in _row(entry)]
+    if any(d.type == "cuda" for d in flat):
         count = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        wanted = max(d.index or 0 for d in devices if d.type == "cuda")
+        wanted = max(d.index or 0 for d in flat if d.type == "cuda")
         if wanted >= count:
             raise RuntimeError(
-                f"launch: {[str(d) for d in devices]} asked for, {count} CUDA card(s) here")
+                f"launch: {[str(d) for d in flat]} asked for, {count} CUDA card(s) here")
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
     port = _free_port()
     procs = [
-        ctx.Process(target=_rank_main, args=(fn, r, world_size, backend, str(devices[r]), port,
-                                             args, results, timeout_s), daemon=True)
+        ctx.Process(target=_rank_main, args=(fn, r, world_size, backend, _spawnable(devices[r]),
+                                             port, args, results, timeout_s), daemon=True)
         for r in range(world_size)
     ]
     for p in procs:

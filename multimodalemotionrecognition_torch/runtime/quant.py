@@ -13,12 +13,15 @@ one float32 scale per output feature,
 The weights stay int8 in device memory.  `Int8Linear.forward` dequantises
 `q.float() * scale` and casts to the activation's dtype on each call; the
 whole-fusion-block kernel reads the int8 matrices and their scales as they
-are (`kernels/fused_block.py`).
+are (`kernels/fused_block.py`).  Under tensor parallelism
+(`parallel/tensor.py`) an `Int8Linear` is split as its float weight would
+be: a column piece keeps its rows' scales, a row piece all of them.  The
+JAX runner also quantises before it shards.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -52,6 +55,19 @@ class Int8Linear(nn.Module):
         self.register_buffer("weight_q", q)
         self.register_buffer("scale", scale)
         self.bias = linear.bias
+
+    @classmethod
+    def from_parts(cls, weight_q: torch.Tensor, scale: torch.Tensor,
+                   bias: Optional[torch.Tensor]) -> "Int8Linear":
+        """An `Int8Linear` holding these tensors as they are (a tensor-
+        parallel piece: `parallel/tensor.py`)."""
+        self = cls.__new__(cls)
+        nn.Module.__init__(self)
+        self.out_features, self.in_features = weight_q.shape
+        self.register_buffer("weight_q", weight_q)
+        self.register_buffer("scale", scale)
+        self.bias = bias
+        return self
 
     def _apply(self, fn, recurse=True):
         scale = self.scale

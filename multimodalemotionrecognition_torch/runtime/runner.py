@@ -16,16 +16,21 @@ the duck-typed contract that `serving/batcher.py` relies on:
     waiting) and the forward run on the stream the runner was made on,
     whichever thread calls them, so a copy staged on one thread is ordered
     before the forward another thread runs on it (`serving/batcher.py`).
-  * `mesh` (`parallel.make_mesh((dp, 1), devices)`): data parallelism in
-    one process, as the JAX runner shards each bucket over the mesh's
-    "data" axis.  One replica of the model per mesh device (a device may
-    repeat), each with its own CUDA stream; buckets are rounded up to
+  * `mesh` (`parallel.make_mesh((dp, tp), devices)`): data and tensor
+    parallelism in one process, as the JAX runner shards each bucket over
+    the mesh's "data" axis and the WavLM trunk over its "model" axis.  One
+    replica of the model per mesh row (a device may repeat), each with its
+    own CUDA stream on the row's first device; buckets are rounded up to
     multiples of dp (JAX `runtime/runner.py:93-100`); a batch's rows are
     split into dp equal blocks, every replica's forward is enqueued before
     any result is read back, and the results are gathered in order.  Each
     replica's forward launches its own kernels (12 K1 + 6 K3, + 1 K4 when
-    fused).  A mesh with model > 1 raises (tensor parallelism is not
-    ported).
+    fused).  With tp > 1 a replica's trunk is split over its row
+    (`parallel/tensor.py`, after the int8 quantisation, as JAX quantises
+    before it shards): K1 and K4 need the whole width on one device, so
+    the attention takes the modular sublayer (6 K3 and no K1 a forward)
+    and `fused=True` or `fused_wavlm=True` raises `ValueError` (the JAX
+    runner warns and ignores them).
   * float32 or bfloat16 compute (the model's weights are cast once).
   * `quantize_int8=True`: weight-only int8 for the `nn.Linear` matrices
     (`runtime/quant.py`), stored int8 on the device and dequantised where
@@ -72,7 +77,8 @@ from multimodalemotionrecognition_torch.convert.checkpoint import (
     normalize_torch_state_dict,
 )
 from multimodalemotionrecognition_torch.models.factory import build_model
-from multimodalemotionrecognition_torch.parallel.mesh import TP_NOT_PORTED, Mesh
+from multimodalemotionrecognition_torch.parallel.mesh import Mesh
+from multimodalemotionrecognition_torch.parallel.tensor import shard_module_
 from multimodalemotionrecognition_torch.runtime.fused import (
     build_fused_xattn_forward,
     supports_fused,
@@ -147,7 +153,9 @@ class ProbsForward(nn.Module):
 
 @dataclasses.dataclass
 class _Replica:
-    """One copy of the served model on one device, with its stream."""
+    """One copy of the served model on one device (the first of its mesh
+    row, which holds the rest of a tensor-parallel replica), with its
+    stream."""
 
     device: torch.device
     forward: ProbsForward
@@ -178,14 +186,18 @@ class TorchModelRunner:
         fused_wavlm: Any = "auto",
         device: str | torch.device = "cuda",
     ):
-        """`device` holds the model; with `mesh` its devices hold one
-        replica each instead.  `donate` has no effect (see the module)."""
-        if mesh is not None and mesh.shape["model"] > 1:
-            raise NotImplementedError(f"TorchModelRunner(mesh={mesh}): {TP_NOT_PORTED}")
+        """`device` holds the model; with `mesh` each of its rows holds one
+        replica instead.  `donate` has no effect (see the module)."""
         self.mesh = mesh
-        devices = [device] if mesh is None else mesh.data_devices
-        devices = [require_device(d, "TorchModelRunner") for d in devices]
-        self.device = devices[0]
+        rows = [(device,)] if mesh is None else [mesh.row(d) for d in range(mesh.shape["data"])]
+        rows = [tuple(require_device(d, "TorchModelRunner") for d in row) for row in rows]
+        if len(rows[0]) > 1 and (fused or (fused_wavlm != "auto" and fused_wavlm)):
+            option = "fused=True" if fused else "fused_wavlm=True"
+            raise ValueError(
+                f"TorchModelRunner({option}) under tensor parallelism (mesh {mesh.shape}): "
+                "the whole-block and attention kernels need the whole model width on one "
+                "device; serve the modular path (the default)")
+        self.device = rows[0][0]
         if compute_dtype not in _DTYPES:
             raise ValueError(f"Unsupported compute dtype: {compute_dtype}")
         self.dtype = _DTYPES[compute_dtype]
@@ -208,7 +220,7 @@ class TorchModelRunner:
         )
         self.use_wavlm = bool(config.get("use_wavlm", checkpoint_uses_wavlm(sd)))
         self.labels = list(labels_for(self.num_classes))
-        self._dp = len(devices)
+        self._dp = len(rows)
         # Every bucket a multiple of the data axis, so each replica gets equal rows.
         self.batch_buckets = tuple(sorted({-(-b // self._dp) * self._dp for b in batch_buckets}))
         self.device_normalize = device_normalize
@@ -231,8 +243,8 @@ class TorchModelRunner:
                 f"pooling, not fusion={model_config.canonical_fusion!r} with "
                 f"temporal_pooling={model_config.temporal_pooling!r}"
             )
-        self.replicas = [self._build_replica(sd, d, quantize_int8, fused, mesh is not None)
-                         for d in devices]
+        self.replicas = [self._build_replica(sd, row, quantize_int8, fused, mesh is not None)
+                         for row in rows]
         first = self.replicas[0]
         self.forward_module = first.forward
         self.model = first.forward.model
@@ -240,11 +252,13 @@ class TorchModelRunner:
         self._fused_forward = first.forward.fused_forward
         self._mean, self._std = self.forward_module.mean, self.forward_module.std
 
-    def _build_replica(self, sd, device: torch.device, quantize_int8: bool, fused: bool,
+    def _build_replica(self, sd, row: Tuple[torch.device, ...], quantize_int8: bool, fused: bool,
                        own_stream: bool) -> _Replica:
-        """The model on `device` from the state dict, quantised, fused, cast
-        and with its kernel operands cached."""
+        """The model on the mesh row `row` (one device, or a tensor-parallel
+        row) from the state dict, quantised, split, fused, cast and with its
+        kernel operands cached."""
         model_config, fusion = self.model_config, self.fusion_mode
+        device = row[0]
         model = build_model(model_config, device=device)
         missing, _unexpected = model.load_state_dict(sd, strict=False)
         missing = [k for k in missing if not k.endswith("num_batches_tracked")]
@@ -262,6 +276,8 @@ class TorchModelRunner:
         # are taken before the model is cast to the compute dtype, as the
         # kernel computes in float32 whatever the towers' dtype.
         quantized = quantize_linears_int8(model) if quantize_int8 else {}
+        if len(row) > 1:
+            shard_module_(model, row)
         fused_forward = build_fused_xattn_forward(model, model_config) if fused else None
         model.to(self.dtype)
         if self.use_wavlm and fusion != "video":

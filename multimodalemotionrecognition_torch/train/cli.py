@@ -10,13 +10,22 @@ group (`maybe_initialize_distributed`, the same `[INFO]` line as JAX's)
 every rank trains its share, and `--mesh_data N` must be the group's size
 (0: all ranks).  Started alone, `--mesh_data N` above 1 spawns N ranks on
 N cards (NCCL; on the CPU, N Gloo ranks) through `parallel.launch`, so the
-JAX command line runs unchanged; fewer cards raise.  `--mesh_model` above 1
-(tensor parallelism) raises.
+JAX command line runs unchanged; fewer cards raise.
+
+Tensor parallelism: `--mesh_data D --mesh_model M` trains on a (D, M)
+mesh: D ranks (one process when D is 1), each splitting the WavLM trunk
+over a row of M cards (`parallel/tensor.py`); rank r takes cards r * M ..
+r * M + M - 1, so the run needs D * M cards and fewer raise (on the CPU,
+M CPU devices a rank).  Under torchrun each rank's row starts at card
+LOCAL_RANK * M.  As in the JAX package's config, `--mesh_model` takes
+effect with `--mesh_data` set (0 puts every device on "data").
 
 Usage: python -m multimodalemotionrecognition_torch train --data_root data \
          --fusion xattn --use_wavlm --two_stage_training --use_cosine_annealing
        torchrun --nproc_per_node 2 -m multimodalemotionrecognition_torch train \
          --mesh_data 2 --data_root data --fusion xattn --use_wavlm --two_stage_training
+       python -m multimodalemotionrecognition_torch train --mesh_data 1 --mesh_model 2 \
+         --data_root data --fusion xattn --use_wavlm --two_stage_training
 """
 
 from __future__ import annotations
@@ -203,14 +212,25 @@ def resolve_video_wire(wire: str, device) -> str:
 
 def _rank_main(rank, world, device, argv):
     """One rank that `main` spawned: the group is up, so `main` trains this
-    rank's share."""
+    rank's share (on its device, or its mesh row)."""
     return main(argv, device=device)
+
+
+def _rows(dp: int, tp: int, device) -> list:
+    """The mesh rows of `dp` ranks of `tp` devices each: cards r * tp ..
+    r * tp + tp - 1, or the CPU; fewer cards raise."""
+    if device.type != "cuda":
+        return [(torch.device("cpu"),) * tp for _ in range(dp)]
+    count = torch.cuda.device_count()
+    if dp * tp > count:
+        raise RuntimeError(f"a ({dp}, {tp}) mesh needs {dp * tp} CUDA cards; {count} here")
+    return [tuple(torch.device("cuda", r * tp + i) for i in range(tp)) for r in range(dp)]
 
 
 def main(argv=None, device="cuda"):
     """Train from the command line on `device` (the card unless the caller
-    passes "cpu").  -> `EmotionTrainer.fit`'s result (rank 0's when `main`
-    spawned the ranks)."""
+    passes "cpu"; a rank that `main` spawned gets its mesh row).  ->
+    `EmotionTrainer.fit`'s result (rank 0's when `main` spawned the ranks)."""
     args = build_arg_parser().parse_args(argv)
     model_cfg, train_cfg, data_cfg = configs_from_args(args)
 
@@ -221,12 +241,11 @@ def main(argv=None, device="cuda"):
         rank,
         world_size,
     )
-    from multimodalemotionrecognition_torch.parallel.mesh import TP_NOT_PORTED
     from multimodalemotionrecognition_torch.utils.device import require_device
 
-    if args.mesh_model > 1:
-        raise NotImplementedError(f"--mesh_model {args.mesh_model}: {TP_NOT_PORTED}")
-    device = require_device(device, "train")
+    tp = (train_cfg.mesh_shape or (0, 1))[1]
+    row = tuple(device) if isinstance(device, (list, tuple)) else None
+    device = require_device(row[0] if row else device, "train")
     if maybe_initialize_distributed(device_type=device.type):
         print(
             f"[INFO] multi-host: process {rank()}/{world_size()}, "
@@ -238,7 +257,8 @@ def main(argv=None, device="cuda"):
             device = local_device("cuda")
     elif args.mesh_data > 1:
         n = args.mesh_data
-        devices = [torch.device("cuda", i) for i in range(n)] if device.type == "cuda" else ["cpu"] * n
+        rows = _rows(n, tp, device)
+        devices = rows if tp > 1 else [r[0] for r in rows]
         backend = "nccl" if device.type == "cuda" else "gloo"
         argv = list(sys.argv[1:] if argv is None else argv)
         return launch(_rank_main, n, backend, devices, args=(argv,), timeout_s=7 * 24 * 3600.0)[0]
@@ -272,7 +292,8 @@ def main(argv=None, device="cuda"):
         except ImportError:
             print("[WARNING] wandb not installed; falling back to JSONL metrics log.")
 
-    trainer = EmotionTrainer(model_cfg, train_cfg, device=device)
+    # Alone or under torchrun with tp > 1, the trainer takes `local_row(tp)`.
+    trainer = EmotionTrainer(model_cfg, train_cfg, device=row or device)
     _, result = trainer.fit(train_loader, val_loader, test_loader, log_fn=log_fn)
     if main_rank:
         print(

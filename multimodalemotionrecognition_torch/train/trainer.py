@@ -62,7 +62,21 @@ all-reduce (no `DistributedDataParallel`: the bf16 step runs on casts through
 predictions and labels are reduced or gathered, so every rank computes the
 same metrics, early stopping and confusion matrix; rank 0 alone prints and
 writes checkpoints, resume files and logs, and a barrier follows each write.
-Tensor parallelism (a mesh with model > 1) raises.
+
+Tensor parallelism (`mesh_shape` (dp, tp) with tp > 1, as JAX shards the
+WavLM trunk over the mesh's "model" axis): a rank owns a mesh row of tp
+devices and splits its model over them (`parallel/tensor.py::
+shard_module_`; one host thread drives the row).  Parameters are the
+pieces, named `<module>.shards.<i>.<leaf>`, which the freeze policy and the
+learning rates read as they read the whole tensors' names; Adam keeps one
+moment per piece (its update is elementwise), the bf16 casts are made per
+piece, and the gradient all-reduce runs over the data group only, one flat
+buffer per (device, dtype).  K1 and K2 need a layer's every head on one
+device, so the attention takes the modular sublayer (JAX's tensor-parallel
+step runs no kernel either); K3 runs as before.  Checkpoints and resume
+files hold the whole tensors (`parallel/mesh.py::gather_params`, as the JAX
+trainer gathers its state into one tree), so a file written under one mesh
+restores under any other.
 
 `fit` takes any loaders whose batches carry numpy `video`, `audio`,
 `labels`, `valid`, `aug` and `size`: `data/pipeline.py::build_loaders`
@@ -101,10 +115,17 @@ from multimodalemotionrecognition_torch.ops.stochastic import RngStreams, draw_r
 from multimodalemotionrecognition_torch.parallel.distributed import (
     BatchShard,
     batch_shard,
+    local_row,
     rank,
     world_size,
 )
-from multimodalemotionrecognition_torch.parallel.mesh import TP_NOT_PORTED
+from multimodalemotionrecognition_torch.parallel.mesh import (
+    Mesh,
+    gather_params,
+    shard_params,
+    unshard_name,
+)
+from multimodalemotionrecognition_torch.parallel.tensor import shard_module_
 from multimodalemotionrecognition_torch.train.freeze import (
     cosine_factor,
     lr_tree,
@@ -236,12 +257,16 @@ class EmotionTrainer:
         self,
         model_config: ModelConfig,
         train_config: TrainConfig,
-        device: str | torch.device = "cuda",
+        device: Any = "cuda",
     ):
-        """`device` is this rank's device.  `train_config.mesh_shape` (else
-        every rank on "data") sets the data-parallel size, which must be 1
-        or the process group's size."""
-        self.device = require_device(device, "EmotionTrainer")
+        """`device` is this rank's device, or its mesh row (a sequence of
+        devices).  `train_config.mesh_shape` (else every rank on "data")
+        sets the data-parallel size, which must be 1 or the process group's
+        size, and the model axis tp: with tp > 1 the model is split over the
+        row given, or over `local_row(tp)` when one device is given."""
+        row = tuple(device) if isinstance(device, (list, tuple)) else (device,)
+        row = tuple(require_device(d, "EmotionTrainer") for d in row)
+        self.device = row[0]
         if model_config.compute_dtype not in _DTYPES:
             raise ValueError(f"Unsupported compute dtype: {model_config.compute_dtype}")
         if model_config.use_wavlm:
@@ -262,7 +287,7 @@ class EmotionTrainer:
         self.tc = train_config
         self.dtype = _DTYPES[model_config.compute_dtype]
         self._validate_train_config()
-        self.shard = self._data_parallel()
+        self.shard, self.row = self._mesh(row)
         self.is_main = self.shard is None or self.shard.rank == 0
         self.is_single_modality = model_config.fusion in {"audio", "video"}
         self.model: Optional[torch.nn.Module] = None
@@ -303,22 +328,24 @@ class EmotionTrainer:
                 stacklevel=3,
             )
 
-    def _data_parallel(self) -> Optional[BatchShard]:
-        """-> this rank's `BatchShard` when the data axis spans several
-        ranks, else None."""
+    def _mesh(self, row: Tuple[torch.device, ...]) -> Tuple[Optional[BatchShard], Tuple[torch.device, ...]]:
+        """-> (this rank's `BatchShard` when the data axis spans several
+        ranks, else None; this rank's mesh row of tp devices)."""
         if self.tc.mesh_shape is not None:
             dp, tp = (tuple(self.tc.mesh_shape) + (1,))[:2]
         else:
             dp, tp = 0, 1  # JAX: every device on "data"; here every rank
-        if tp > 1:
-            raise NotImplementedError(f"EmotionTrainer: {TP_NOT_PORTED}")
+        if tp > 1 and len(row) == 1:
+            row = local_row(tp, self.device.type)
+        if len(row) != tp:
+            raise ValueError(f"a model axis of {tp} takes a row of {tp} devices, not {len(row)}")
         world = world_size()
         dp = dp or world
         if dp == 1:
-            return None
+            return None, row
         if dp != world:
             raise ValueError(f"a data axis of {dp} needs {dp} ranks; the process group has {world}")
-        return BatchShard(rank(), world)
+        return BatchShard(rank(), world), row
 
     def _global_sum(self, t: torch.Tensor) -> torch.Tensor:
         """`t` summed over the ranks (not recorded by autograd); itself alone."""
@@ -337,16 +364,18 @@ class EmotionTrainer:
         return torch.cat(parts)
 
     def reduce_gradients(self) -> None:
-        """Sum the `.grad` of every parameter over the ranks, in place: one
-        all-reduce of a flat buffer per dtype.  Every rank runs the same
-        layers, so the same parameters hold a gradient."""
+        """Sum the `.grad` of every parameter over the data axis's ranks, in
+        place: one all-reduce of a flat buffer per (device, dtype) (a
+        tensor-parallel row's pieces on different cards cannot share one).
+        Every rank runs the same layers, so the same parameters hold a
+        gradient."""
         if self.shard is None:
             return
-        by_dtype: Dict[torch.dtype, list] = {}
+        groups: Dict[Tuple[torch.device, torch.dtype], list] = {}
         for p in self.model.parameters():
             if p.grad is not None:
-                by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
-        for grads in by_dtype.values():
+                groups.setdefault((p.grad.device, p.grad.dtype), []).append(p.grad)
+        for grads in groups.values():
             flat = torch.cat([g.reshape(-1) for g in grads])
             dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.shard.group)
             offset = 0
@@ -392,6 +421,8 @@ class EmotionTrainer:
     def _fresh_state(self, generator: Optional[torch.Generator] = None) -> TrainState:
         generator = generator or torch.Generator().manual_seed(self.tc.seed)
         self.model = build_model(self.mc, device=self.device, generator=generator)
+        if len(self.row) > 1:
+            shard_module_(self.model, self.row)
         self._cast_cache.clear()
         self._active_mask = None
         masks = [self.trainable_mask(s) for s in self._stages()]
@@ -421,9 +452,10 @@ class EmotionTrainer:
                 continue
             sd, _ = load_reference_checkpoint(path)
             result = getattr(self.model, branch).load_state_dict(
-                normalize_torch_state_dict(sd), strict=False
+                self._shard_state(normalize_torch_state_dict(sd)), strict=False
             )
-            counted = lambda keys: sum(not k.endswith("num_batches_tracked") for k in keys)  # noqa: E731
+            counted = lambda keys: len({  # noqa: E731 - whole tensors, not pieces
+                unshard_name(k) for k in keys if not k.endswith("num_batches_tracked")})
             report[branch] = (counted(result.missing_keys), counted(result.unexpected_keys))
             self._log(
                 f"[INFO] Loaded {branch} checkpoint: {path} "
@@ -893,6 +925,18 @@ class EmotionTrainer:
     # checkpoints
     # ------------------------------------------------------------------
 
+    def _shard_state(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Whole tensors by name -> this rank's pieces of them (its mesh
+        row's), the names the sharded model's state dict has."""
+        if len(self.row) == 1:
+            return tensors
+        return shard_params(Mesh([self.row]), tensors)[0]
+
+    @staticmethod
+    def _whole_cpu(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Pieces gathered into whole tensors, on the CPU."""
+        return {k: v.detach().cpu() for k, v in gather_params(tensors).items()}
+
     def save_resume_state(
         self, directory: Path | str, state: TrainState, epoch: int, best_f1: float
     ) -> None:
@@ -901,17 +945,18 @@ class EmotionTrainer:
         orbax tree): the model's parameters and buffers, the Adam count and
         moments, the state of every generator of `RngStreams` (device and
         host), step, epoch and best F1.  Data parallel: rank 0 writes, then
-        every rank waits for it."""
+        every rank waits for it.  Tensor parallel: the whole tensors, so
+        the file restores under any mesh."""
         if not self.is_main:
             self._barrier()
             return
         directory = Path(directory)
         directory.mkdir(parents=True, exist_ok=True)
-        cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}  # noqa: E731
+        whole = self._whole_cpu
         payload = {
-            "model": cpu(state.model.state_dict()),
-            "opt_state": {"count": state.opt_state.count, "mu": cpu(state.opt_state.mu),
-                          "nu": cpu(state.opt_state.nu)},
+            "model": whole(state.model.state_dict()),
+            "opt_state": {"count": state.opt_state.count, "mu": whole(state.opt_state.mu),
+                          "nu": whole(state.opt_state.nu)},
             "rng": state.rng.get_state(),
             "step": int(state.step),
             "epoch": int(epoch),
@@ -922,17 +967,19 @@ class EmotionTrainer:
 
     def restore_resume_state(self, directory: Path | str) -> Tuple[TrainState, int, float]:
         """-> (TrainState, epoch, best_f1) from `save_resume_state`'s file,
-        on a model built anew (no warm start: the file has every tensor)."""
+        on a model built anew (no warm start: the file has every tensor) and
+        split by this trainer's mesh row."""
         payload = torch.load(Path(directory) / "resume.pt", map_location="cpu", weights_only=False)
         state = self._fresh_state()
-        state.model.load_state_dict(payload["model"], strict=True)
+        state.model.load_state_dict(self._shard_state(payload["model"]), strict=True)
         opt = payload["opt_state"]
-        if set(opt["mu"]) != set(state.opt_state.mu):
+        mu, nu = self._shard_state(opt["mu"]), self._shard_state(opt["nu"])
+        if set(mu) != set(state.opt_state.mu):
             raise ValueError("the resume file's optimizer state is for another set of parameters")
         state.opt_state.count = int(opt["count"])
         for name in state.opt_state.mu:
-            state.opt_state.mu[name].copy_(opt["mu"][name])
-            state.opt_state.nu[name].copy_(opt["nu"][name])
+            state.opt_state.mu[name].copy_(mu[name])
+            state.opt_state.nu[name].copy_(nu[name])
         state.rng.set_state(payload["rng"])
         state.step = int(payload["step"])
         return state, int(payload["epoch"]), float(payload["best_f1"])
@@ -941,13 +988,14 @@ class EmotionTrainer:
         """Reference-format .pt: {"model": state_dict, "val_f1", "config"}
         (`src/train.py:1138-1144`), which `TorchModelRunner`, the JAX
         package's runner and the reference framework load.  Data parallel:
-        rank 0 writes, then every rank waits for it."""
+        rank 0 writes, then every rank waits for it.  Tensor parallel: the
+        whole tensors."""
         if not self.is_main:
             self._barrier()
             return
         path = Path(path)
         path.parent.mkdir(parents=True, exist_ok=True)
-        model = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+        model = self._whole_cpu(state.model.state_dict())
         torch.save(
             {"model": model, "val_f1": float(val_f1), "config": self.mc.to_checkpoint_dict()},
             path,

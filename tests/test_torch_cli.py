@@ -78,13 +78,23 @@ def test_configs_from_args_equal_jax(argv):
         jax_cli.build_arg_parser().parse_args(argv))
 
 
-def test_cli_refuses_meshes_and_picks_the_wire(tmp_path, monkeypatch):
-    """`--mesh_model 2` (tensor parallelism, not ported) is refused, naming
-    its ROADMAP item; `--mesh_data 2` started alone spawns two Gloo ranks on
-    the CPU, which get as far as the data (an absent root: the ranks' own
-    error comes back)."""
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        cli.main(["--data_root", "absent", "--mesh_model", "2"], device="cpu")
+def test_cli_takes_meshes_and_picks_the_wire(tmp_path, monkeypatch):
+    """`--mesh_data 1 --mesh_model 2` (tensor parallelism) trains in this
+    process on a row of two CPU devices, and gets as far as the data (an
+    absent root); a (2, 2) mesh on the card takes four cards, and fewer
+    raise; `--mesh_data 2` started alone spawns two Gloo ranks on the CPU,
+    which get as far as the data (the ranks' own error comes back)."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="No audio-video pairs found"):
+        cli.main(["--data_root", str(tmp_path / "absent"), "--mesh_data", "1", "--mesh_model", "2"],
+                 device="cpu")
+    assert cli._rows(2, 2, torch.device("cpu")) == [(torch.device("cpu"),) * 2] * 2
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    with pytest.raises(RuntimeError, match="needs 4 CUDA cards; 3 here"):
+        cli._rows(2, 2, torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert cli._rows(2, 2, torch.device("cuda"))[1] == (torch.device("cuda", 2), torch.device("cuda", 3))
+    monkeypatch.undo()
     monkeypatch.chdir(tmp_path)
     with pytest.raises(RuntimeError, match="rank 0 of 2 failed(.|\n)*No audio-video pairs found"):
         cli.main(["--data_root", str(tmp_path / "absent"), "--mesh_data", "2"], device="cpu")

@@ -56,11 +56,18 @@ def test_make_mesh_shapes_and_errors_match_jax(shape, n):
     assert [[d.type for d in row] for row in got.devices] == [["cpu"] * want.shape["model"]] * want.shape["data"]
 
 
-def test_make_mesh_takes_repeated_devices_and_refuses_tp_params():
+def test_make_mesh_takes_repeated_devices_and_shard_params_splits_tp_params():
+    """A (1, 2) mesh splits a leaf that a rule names into its two pieces on
+    the row's devices and keeps any other leaf whole (tests/test_torch_tp.py
+    holds every leaf against JAX's shards)."""
     m = mesh.make_mesh((2, 1), devices=["cpu", "cpu"])
     assert m.data_devices == [torch.device("cpu")] * 2
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        mesh.shard_params(mesh.make_mesh((1, 2), devices=["cpu", "cpu"]), {"w": torch.zeros(2)})
+    q = "wavlm.encoder.layers.0.attention.q_proj.weight"
+    (tp,) = mesh.shard_params(mesh.make_mesh((1, 2), devices=["cpu", "cpu"]),
+                              {"w": torch.zeros(2), q: torch.arange(12.0).view(4, 3)})
+    assert sorted(tp) == ["w", q.replace("q_proj.", "q_proj.shards.0."),
+                          q.replace("q_proj.", "q_proj.shards.1.")]
+    assert torch.equal(tp[q.replace("q_proj.", "q_proj.shards.1.")], torch.arange(6.0, 12.0).view(2, 3))
     copies = mesh.shard_params(m, {"w": torch.arange(3.0)})
     assert len(copies) == 2 and all(torch.equal(c["w"], torch.arange(3.0)) for c in copies)
     assert len(mesh.replicate(m, [torch.ones(2)])) == 2
@@ -110,13 +117,18 @@ def test_param_sharding_rules_match_jax_on_every_small_wavlm_parameter():
     assert sharded == 2 * 10
 
 
-def test_trainer_refuses_tensor_parallel_meshes_and_unmatched_data_axes():
+def test_trainer_takes_tensor_parallel_rows_and_refuses_unmatched_axes():
     cfg = ModelConfig(fusion="concat", num_classes=4, spec_augment=False)
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+    # A model axis of 2: the rank's row of two CPU devices (given, or made).
+    for device in ("cpu", ["cpu", "cpu"]):
+        trainer = EmotionTrainer(cfg, TrainConfig(mesh_shape=(1, 2)), device=device)
+        assert trainer.shard is None and trainer.row == (torch.device("cpu"),) * 2
+    with pytest.raises(ValueError, match="model axis of 2 takes a row of 2 devices, not 3"):
+        EmotionTrainer(cfg, TrainConfig(mesh_shape=(1, 2)), device=["cpu"] * 3)
+    # No process group here: a data axis of 2 has no second rank, with or
+    # without a model axis.
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         EmotionTrainer(cfg, TrainConfig(mesh_shape=(2, 2)), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        EmotionTrainer(cfg, TrainConfig(mesh_shape=(1, 2)), device="cpu")
-    # No process group here: a data axis of 2 has no second rank.
     with pytest.raises(ValueError, match="needs 2 ranks"):
         EmotionTrainer(cfg, TrainConfig(mesh_shape=(2, 1)), device="cpu")
     assert EmotionTrainer(cfg, TrainConfig(mesh_shape=(1, 1)), device="cpu").shard is None

@@ -154,19 +154,22 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("option", ["donate", "mesh"])
-def test_unported_runner_options_raise(ckpt, option):
+def test_donate_changes_nothing_and_a_tp_mesh_serves_the_same_probabilities(ckpt, option):
     """`donate` (XLA buffer donation) is accepted and changes nothing; a
-    data-parallel mesh is served, and only a tensor-parallel one (model > 1,
-    not ported) raises, naming its ROADMAP item."""
+    tensor-parallel mesh (model 2, the WavLM trunk split over two CPU
+    devices) gives one device's probabilities within 1e-5 (float32, the
+    row-parallel sums in another order; tests/test_torch_tp.py holds it
+    against JAX's tensor-parallel runner)."""
+    video = np.random.default_rng(0).standard_normal((2, 8, 3, 112, 112)).astype(np.float32)
+    audio = np.random.default_rng(1).standard_normal((2, 1, 48000)).astype(np.float32) * 0.1
+    want = TorchModelRunner(ckpt, device="cpu").predict_probs(video, audio)
     if option == "donate":
         donated = TorchModelRunner(ckpt, device="cpu", donate=True)
-        video = np.random.default_rng(0).standard_normal((2, 8, 3, 112, 112)).astype(np.float32)
-        audio = np.random.default_rng(1).standard_normal((2, 1, 48000)).astype(np.float32) * 0.1
-        np.testing.assert_array_equal(donated.predict_probs(video, audio),
-                                      TorchModelRunner(ckpt, device="cpu").predict_probs(video, audio))
+        np.testing.assert_array_equal(donated.predict_probs(video, audio), want)
         return
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        TorchModelRunner(ckpt, device="cpu", mesh=make_mesh((1, 2), ["cpu", "cpu"]))
+    tp = TorchModelRunner(ckpt, device="cpu", mesh=make_mesh((1, 2), ["cpu", "cpu"]))
+    assert tp.batch_buckets == (1, 2, 4, 8) and len(tp.replicas) == 1
+    np.testing.assert_allclose(tp.predict_probs(video, audio), want, atol=1e-5, rtol=0)
 
 
 def test_missing_keys_guard(ckpt, tmp_path):
