@@ -18,6 +18,18 @@ Phases (the first failure ends the run with a non-zero exit code):
   2. build   - nvcc builds the kernels from `multimodalemotionrecognition_torch/
                kernels/csrc/` for sm_90a, one process per source; the run
                fails if ptxas reports a spill in a tensor-core kernel.
+  2a. media - the native libav loader (`native/`): whether pkg-config finds
+               libav on this machine, and the behaviour that follows.
+               Without libav: `medialoader.available()` is False, the build
+               and `python -m multimodalemotionrecognition_torch build-native`
+               fail with pkg-config's message, a container's audio raises
+               with it, and video decode takes cv2 (phases 5a, 11 and 13
+               decode through cv2).  With libav: the build and its seconds,
+               then a 3 s .webm (vp8 + opus) and .mp4 (h264 + aac) of a
+               synthetic face at 256 px with a 48 kHz tone, written by
+               `encode_av`, decoded by the loader and by cv2: the sampled
+               frames' mean and p99 difference (the JAX suite's bounds) and
+               the tone's peak within 3 Hz.
   3. kernels - each kernel against its plain PyTorch version at the serving
                path's shapes, with TF32 off: K1 (B=8, T=149, E=768, 12 heads)
                and K3 (layers L1..L6 at B=8) in float32 and bfloat16; K4, the
@@ -1600,6 +1612,85 @@ def train_rest(dev, card, tmp):
     print(f"train rest: launches of the main path's train steps {launches}; phase wall time "
           f"{report['phase_s']:.1f} s [{card}]")
     return launches, report
+
+
+def media_loader(card: str) -> dict:
+    """Phase 2a: the native libav loader on this machine (host work only)."""
+    import os
+    import subprocess
+
+    import cv2
+
+    from multimodalemotionrecognition_torch.data import media
+    from multimodalemotionrecognition_torch.data.synthface import make_scene
+    from multimodalemotionrecognition_torch.native import build as native_build
+    from multimodalemotionrecognition_torch.native import medialoader
+
+    started = time.perf_counter()
+    absent = native_build.missing()
+    report = {"libav": None if absent else native_build.libav_version().split(), "card": card}
+    rng = np.random.default_rng(SEED)
+    scene = make_scene(rng, size=256, p_face=1.0)[0]
+    frames = np.stack([np.roll(scene, i, axis=1) for i in range(75)])  # 3 s at 25 fps
+    t = np.arange(3 * 48000) / 48000
+    tone = (0.3 * np.sin(2 * np.pi * 440.0 * t) + 0.01 * rng.standard_normal(t.size)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        if absent:
+            # what cv2's own FFmpeg is (it ships no headers to build against)
+            report["cv2_ffmpeg"] = [line.strip() for line in cv2.getBuildInformation().splitlines()
+                                    if "avcodec" in line or "avformat" in line]
+            print(f"media: libav absent ({absent.splitlines()[0]}); cv2 {cv2.__version__} "
+                  f"{report['cv2_ffmpeg']} | {card}")
+            if medialoader.available():
+                raise AssertionError("medialoader available without libav")
+            hub = subprocess.run([sys.executable, "-m", "multimodalemotionrecognition_torch",
+                                  "build-native"], capture_output=True, text=True, cwd=REPO)
+            if hub.returncode == 0 or "pkg-config" not in hub.stderr:
+                raise AssertionError(f"build-native without libav: {hub.returncode} {hub.stderr}")
+            clip = Path(tmp) / "clip.mp4"
+            writer = cv2.VideoWriter(str(clip), cv2.VideoWriter_fourcc(*"mp4v"), 25, (256, 256))
+            for frame in frames[:25]:
+                writer.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
+            writer.release()
+            try:
+                media.load_audio_wav(clip)
+                raise AssertionError("container audio decoded without libav")
+            except RuntimeError as e:
+                if "pkg-config" not in str(e):
+                    raise
+            video = media.decode_video_frames_u8(clip)
+            if video.shape != (8, 112, 112, 3) or not video.any():
+                raise AssertionError(f"cv2 video decode without libav: {video.shape}")
+            report["absent"] = absent
+            report["build_native_rc"] = hub.returncode
+        else:
+            t0 = time.perf_counter()
+            native_build.compile_to(Path(tmp) / "libmedialoader.so")
+            report["build_s"] = time.perf_counter() - t0
+            native_build.build()
+            print(f"media: libav {' '.join(report['libav'])}, loader built in "
+                  f"{report['build_s']:.2f} s | {card}")
+            for ext in ("webm", "mp4"):
+                clip = Path(tmp) / f"clip.{ext}"
+                medialoader.encode_av(str(clip), frames, 25.0, tone, 48000)
+                native = media.load_video_frames(clip)
+                os.environ["EMO_NATIVE_DECODE"] = "0"
+                try:
+                    cv2_frames = media.load_video_frames(clip)
+                finally:
+                    del os.environ["EMO_NATIVE_DECODE"]
+                diff = np.abs(native - cv2_frames)
+                wav = media.load_audio_wav(clip)[0]
+                peak = float(np.argmax(np.abs(np.fft.rfft(wav[:16000]))))
+                report[ext] = {"frames_mean_diff": float(diff.mean()),
+                               "frames_p99_diff": float(np.percentile(diff, 99)),
+                               "tone_peak_hz": peak}
+                print(f"media: {ext} frames libav - cv2 mean {diff.mean():.4f} p99 "
+                      f"{np.percentile(diff, 99):.4f}, tone peak {peak:.0f} Hz | {card}")
+                if diff.mean() >= 0.05 or np.percentile(diff, 99) >= 0.6 or abs(peak - 440) > 3:
+                    raise AssertionError(f"media {ext}: {report[ext]}")
+    report["seconds"] = time.perf_counter() - started
+    return report
 
 
 def make_checkpoint(path):
@@ -3611,6 +3702,7 @@ def main() -> int:
     # core for 64 and 160 keys and the out-projection, per dtype).
     if len(tensor_core) < 33 or any(tensor_core.values()):
         raise AssertionError(f"tensor-core kernels missing from the build log or spilling: {tensor_core}")
+    media_report = media_loader(card)
 
     gen = torch.Generator().manual_seed(SEED)
     k1 = check_k1(dev, gen)
@@ -3756,7 +3848,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "serve": perf, "serve_stack": stack_report,
                       "families": family_perf, "bench": bench_report, "train": train_report,
                       "export": export_report, "blazeface": face_report,
-                      "data_parallel": dp_report, "tensor_parallel": tp_report, "card": card}))
+                      "data_parallel": dp_report, "tensor_parallel": tp_report,
+                      "media": media_report, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

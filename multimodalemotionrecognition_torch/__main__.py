@@ -10,18 +10,12 @@
   convert             inspect a reference-format .pt checkpoint
   make-data           synthetic RAVDESS-style corpus
   export              src/export_optimized_model.py: torch.export artifact + meta.json (on the card)
-
-Not ported yet (exit code 2): build-native (ROADMAP queue 1, item 4, the
-libav loader).
+  build-native        build the native libav media loader, print its path
 """
 
 from __future__ import annotations
 
 import sys
-
-_NOT_PORTED = {
-    "build-native": "ROADMAP queue 1, item 4 (the native libav loader)",
-}
 
 
 def _convert(argv) -> None:
@@ -41,16 +35,21 @@ def _convert(argv) -> None:
     print(f"config: {config or '(none; signature=' + str(infer_model_signature(sd)) + ')'}")
 
 
+def _build_native(argv) -> None:
+    import argparse
+
+    from multimodalemotionrecognition_torch.native.build import build
+
+    argparse.ArgumentParser(prog="build-native").parse_args(argv)
+    print(build())
+
+
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else list(argv)
     if not argv or argv[0] in {"-h", "--help"}:
         print(__doc__)
         return
     command, rest = argv[0], argv[1:]
-    if command in _NOT_PORTED:
-        print(f"{command}: not ported to the PyTorch package yet; see {_NOT_PORTED[command]}",
-              file=sys.stderr)
-        raise SystemExit(2)
     if command == "train":
         from multimodalemotionrecognition_torch.train.cli import main as fn
     elif command == "eval":
@@ -71,6 +70,8 @@ def main(argv=None) -> None:
         from multimodalemotionrecognition_torch.runtime.export import main as fn
     elif command == "convert":
         fn = _convert
+    elif command == "build-native":
+        fn = _build_native
     else:
         print(f"Unknown command: {command}\n{__doc__}", file=sys.stderr)
         raise SystemExit(2)

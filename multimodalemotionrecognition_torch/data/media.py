@@ -7,7 +7,7 @@ Counterpart of the JAX package's `data/media.py` (reference
     load contract: float32 in [-1, 1]), head-crop/zero-pad to 3 s, and the
     SNR noise curriculum (50% clean / 40% @ {20,15,10} dB / 10% @ 5 dB) on
     the bar-noise bank, or Gaussian noise when the bank is absent;
-  * video: OpenCV decode (FFMPEG backend) with uniform frame sampling,
+  * video: libav (or OpenCV) decode with uniform frame sampling,
     first-frame face detection + bbox reuse, 30%-padded crop, bilinear
     resize, the reference's low-light augmentation, and ImageNet
     normalisation or the uint8 wire.
@@ -17,17 +17,21 @@ package's order (video: factor, noise sigma, kernel size; audio: level,
 SNR, offset), so one seed gives one augmentation on either wire and in
 either package.
 
-Audio from a non-WAV container (`.mp4`, `.webm`), which the JAX package
-decodes through its native libav loader, raises.  A file whose bytes are a
+Audio from a non-WAV container (`.mp4`, `.webm`) comes from the native
+libav loader (`native/medialoader.py`), as in the JAX package; without
+libav it raises with what pkg-config reported.  A file whose bytes are a
 RIFF/WAVE container is decoded as WAV whatever its name, as libav would
-(the direct app stores uploads as `.webm`).  The port has no native
-decoder, so video always takes the cv2 path (the JAX package's
-`EMO_NATIVE_DECODE=0`).
+(the direct app stores uploads as `.webm`).  Video goes through the same
+loader when it is available (one demux pass, the crop applied at native
+resolution before the resize); `EMO_NATIVE_DECODE=0` forces the cv2 path,
+and so does a container libav cannot open.  The two differ only in the
+bilinear resize filter (swscale against cv2, under 2/255 a pixel).
 """
 
 from __future__ import annotations
 
 import io
+import os
 from math import gcd
 from pathlib import Path
 from typing import Optional, Tuple
@@ -35,7 +39,11 @@ from typing import Optional, Tuple
 import numpy as np
 
 from multimodalemotionrecognition_torch.config import IMAGENET_MEAN, IMAGENET_STD
-from multimodalemotionrecognition_torch.data.face import crop_with_padding, get_face_detector
+from multimodalemotionrecognition_torch.data.face import (
+    crop_with_padding,
+    get_face_detector,
+    padded_crop_rect,
+)
 from multimodalemotionrecognition_torch.ops.image import uniform_frame_indices
 from multimodalemotionrecognition_torch.ops.mel import log_mel_spectrogram_np
 
@@ -123,12 +131,18 @@ def load_audio_file(path: Path | str, sample_rate: int = 16000) -> np.ndarray:
 
 
 def _decode_container_audio(path: Path) -> Tuple[np.ndarray, int]:
-    """Audio track of a non-WAV container: the JAX package reads it through
-    its native libav loader (`native/medialoader.py`), which the port has
-    not copied."""
+    """Audio track of a non-WAV container (mp4/webm) through the native libav
+    loader; the reference shells out to ffmpeg for this
+    (`backend/app/preprocess.py:354-383`)."""
+    from multimodalemotionrecognition_torch.native import medialoader
+
+    if medialoader.available():
+        return medialoader.decode_audio(str(path))
+    from multimodalemotionrecognition_torch.native.build import missing
+
     raise RuntimeError(
         f"Cannot decode audio from {path.suffix} container: the native libav loader "
-        "is not ported yet (ROADMAP queue 1, item 4); upload a .wav file"
+        f"is unavailable ({missing() or 'not loaded'}); upload a .wav file"
     )
 
 
@@ -246,6 +260,71 @@ def augment_video_frames(frames01: np.ndarray, rng=None) -> np.ndarray:
     return out
 
 
+def _native_decode_enabled() -> bool:
+    if os.environ.get("EMO_NATIVE_DECODE", "1") != "1":
+        return False
+    from multimodalemotionrecognition_torch.native import medialoader
+
+    return medialoader.available()
+
+
+def _load_video_frames_native(
+    video_path: Path | str,
+    num_frames: int,
+    size: int,
+    use_face_crop: bool,
+    bbox,
+) -> Optional[np.ndarray]:
+    """libav decode -> uint8 [T, size, size, 3] RGB, or None when libav
+    cannot handle the container (the caller takes the cv2 path).
+
+    The cv2 path's semantics: uniform sampling, bbox detected on the FIRST
+    sampled frame at native resolution and reused, 30%-padded crop applied
+    BEFORE the resize.  A file with no video stream gives zeros, as cv2's
+    failed parse does."""
+    from multimodalemotionrecognition_torch.native import medialoader
+
+    path = str(video_path)
+    try:
+        info = medialoader.probe_video(path)
+    except RuntimeError:
+        return None
+    if info["width"] <= 0 or info["height"] <= 0:
+        return np.zeros((num_frames, size, size, 3), dtype=np.uint8)
+    total = int(info["frames"])
+    if total <= 0:
+        return None
+    indices = [int(i) for i in uniform_frame_indices(total, num_frames)]
+    try:
+        if not use_face_crop or bbox is not None:
+            # bbox known (or no crop): crop + resize inside the decoder, one pass.
+            rect = (padded_crop_rect((info["height"], info["width"]), bbox, 0.3)
+                    if use_face_crop and bbox is not None else None)
+            return medialoader.decode_video_frames(path, indices, size, size, crop=rect)
+        # bbox unknown (the common serving case): one decode pass at native
+        # resolution, detect on the first sampled frame, then crop + resize
+        # with cv2, byte for byte the reference's crop path
+        # (`src/data/ravdess.py:337-357`).
+        nat = medialoader.decode_video_frames(path, indices, info["width"], info["height"])
+    except RuntimeError:
+        return None
+    import cv2
+
+    detector = get_face_detector()
+    det_bbox = None
+    if detector is not None:
+        try:
+            det_bbox = detector.detect_face_bbox(nat[0])
+        except Exception:  # full-frame fallback, like the reference
+            pass
+    out = np.empty((len(nat), size, size, 3), dtype=np.uint8)
+    for i, frame in enumerate(nat):
+        if det_bbox is not None:
+            frame = crop_with_padding(frame, det_bbox, pad_ratio=0.3)
+        out[i] = cv2.resize(frame, (size, size), interpolation=cv2.INTER_LINEAR)
+    return out
+
+
 def decode_video_frames_u8(
     video_path: Path | str,
     num_frames: int = 8,
@@ -257,8 +336,15 @@ def decode_video_frames_u8(
 
     Uniform sampling, bbox detected on the FIRST sampled frame only and
     reused (`src/data/ravdess.py:314-348`), 30%-padded crop, bilinear
-    resize.  A detector that fails on a frame leaves it uncropped, like the
-    reference; a detector that cannot be made (`get_face_detector`) raises."""
+    resize.  Through the libav loader when it is available
+    (`EMO_NATIVE_DECODE=0` forces cv2), else cv2.  A detector that fails on
+    a frame leaves it uncropped, like the reference; a detector that cannot
+    be made (`get_face_detector`) raises."""
+    if _native_decode_enabled():
+        native = _load_video_frames_native(video_path, num_frames, size, use_face_crop, bbox)
+        if native is not None:
+            return native
+
     import cv2
 
     detector = get_face_detector() if use_face_crop and bbox is None else None

@@ -3,9 +3,12 @@
 The port's copy of the JAX package's `data/pipeline.py`, which replaces the
 reference's torch DataLoader worker processes (`src/train.py:45-73,174-176`)
 with a thread pool and a prefetch queue producing padded, fixed-shape numpy
-batches.  Threads suffice because decode is C-native (OpenCV and scipy
-release the interpreter lock).  Every batch has the same shape: the trailing
-partial batch is zero-padded to `batch_size` with a `valid` mask.
+batches.  Threads suffice because decode is C-native (the libav loader,
+OpenCV and scipy release the interpreter lock).  RAVDESS `.mp4` video is
+read through `data/media.py`: the native libav loader when it is available,
+cv2 otherwise or under `EMO_NATIVE_DECODE=0`.  Every batch has the same
+shape: the trailing partial batch is zero-padded to `batch_size` with a
+`valid` mask.
 
 The producer's threads touch numpy and the decoders only, never CUDA: the
 trainer pins and copies each batch on its own side stream

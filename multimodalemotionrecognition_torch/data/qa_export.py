@@ -2,7 +2,8 @@
 `src/export_augmented_examples.py:178-271`).
 
 The port's copy of the JAX package's `data/qa_export.py`, on the port's
-media decode and RAVDESS pairing.
+media decode (`data/media.py`: video through the native libav loader when
+it is available, cv2 otherwise) and RAVDESS pairing.
 
 Exports human-inspectable artifacts of the training augmentations: the
 augmented frames as PNGs (or an .mp4 when OpenCV has an encoder), the

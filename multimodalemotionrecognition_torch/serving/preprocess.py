@@ -2,12 +2,14 @@
 
 Counterpart of the JAX package's `serving/preprocess.py`, host numpy only:
 
-  * file path: cv2 video decode + face crop + normalisation, audio from the
-    same file (`data/media.py`: WAV only; other containers raise until the
-    libav loader is copied, ROADMAP queue 1, item 4);
+  * file path: video decode + face crop + normalisation, audio from the
+    same file (`data/media.py`: a `.mp4` or `.webm` through the native libav
+    loader, `native/medialoader.py`, video through cv2 under
+    `EMO_NATIVE_DECODE=0`; container audio raises where libav is absent);
   * uploaded bytes: a `.wav` upload takes the in-memory path (RIFF decode,
     resample, head-crop/pad, blank video flagged for the batcher); other
-    uploads go through a temporary file and the file path;
+    uploads (the browser's `.webm`, `.mp4` clips) go through a temporary
+    file and the file path;
   * stream path: in-memory frames + waveform, with the reference's quirk
     kept: streaming TAIL-crops audio (the most recent 3 s, `:320-323`) while
     file audio HEAD-crops.

@@ -7,6 +7,10 @@ Tolerances: configs, output file sets, QA artifacts and JSON keys are equal;
 the evaluator's accuracy and macro-F1 are equal, and the two models' logits
 on the test clips agree within 1e-4 (float32, other summation orders) with
 the same argmax on every clip.
+
+Both packages read video through cv2 here (`EMO_NATIVE_DECODE=0`), except
+the QA export, which runs once on each decoder (the `decoder` fixture of
+`tests/torch_native.py`: cv2, and both packages on their libav loaders).
 """
 
 import contextlib
@@ -35,6 +39,8 @@ from multimodalemotionrecognition_torch.data import face, qa_export, synthetic
 from multimodalemotionrecognition_torch.data.pipeline import build_loaders
 from multimodalemotionrecognition_torch.train import cli
 from multimodalemotionrecognition_torch.train import eval as port_eval
+
+from tests.torch_native import decoder, jax_loader_path  # noqa: F401  (fixtures)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -211,7 +217,7 @@ def test_eval_main_reads_the_test_actors(runs, corpus, tmp_path, monkeypatch, ca
 
 
 @pytest.mark.parametrize("visual", [False, True], ids=["augment", "visual"])
-def test_qa_export_equals_jax(corpus, tmp_path, visual):
+def test_qa_export_equals_jax(corpus, tmp_path, decoder, visual):
     port_out = qa_export.export_augmented_example(str(corpus), str(tmp_path / "port"), index=1,
                                                   visual=visual, seed=4)
     jax_out = jax_qa_export.export_augmented_example(str(corpus), str(tmp_path / "jax"), index=1,

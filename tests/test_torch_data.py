@@ -10,9 +10,11 @@ two numpy mel twins sum in another order); `mix_noise_snr` within 1e-6
 (torch against XLA float32 arithmetic), its curriculum shares within 3
 sigma of 0.5 / 0.4 / 0.1 over 4,000 draws.
 
-The JAX package reads video through its native libav loader when that is
-built; these tests pin it to its cv2 path (`EMO_NATIVE_DECODE=0`), the only
-path the port has.
+Both packages read video through their native libav loaders when those
+are built.  These tests pin both to cv2 (`EMO_NATIVE_DECODE=0`), except the
+tests that decode video, which run once on each decoder (the `decoder`
+fixture of `tests/torch_native.py`: cv2, and both packages on their
+loaders).
 """
 
 import dataclasses
@@ -36,6 +38,7 @@ from multimodalemotionrecognition_torch.data import face, media, pipeline, ravde
 from multimodalemotionrecognition_torch.ops import stochastic
 
 from tests.test_data import _synthetic_face_video, _write_video
+from tests.torch_native import decoder, jax_loader_path  # noqa: F401  (fixtures)
 
 
 @pytest.fixture(autouse=True)
@@ -170,7 +173,7 @@ def clips(tmp_path_factory):
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
-def test_augmented_loaders_equal_jax(clips, seed):
+def test_augmented_loaders_equal_jax(clips, decoder, seed):
     bank = np.random.RandomState(5).randn(30000).astype(np.float32)
     for kwargs in ({}, {"noise_bank": bank}):
         got = media.load_audio_wav(clips / "clip.wav", augment=True,
@@ -234,7 +237,7 @@ def _batch_fields(batch):
 
 
 @pytest.mark.parametrize("wire", ["float32", "uint8"])
-def test_loaders_give_jax_batches_over_two_epochs(tiny_corpus, tmp_path, monkeypatch, wire):
+def test_loaders_give_jax_batches_over_two_epochs(tiny_corpus, tmp_path, monkeypatch, decoder, wire):
     monkeypatch.chdir(tmp_path)
     common = dict(data_root=str(tiny_corpus), split_mode="actor", train_actors=(1, 3),
                   val_actors=(2,), test_actors=(4,), seed=11)

@@ -3,9 +3,10 @@
 package's: scipy-written WAVs and cv2-written videos, as
 `tests/test_data.py` writes them.  Every output is exactly equal.
 
-The JAX package reads video through its native libav loader when that is
-built; these tests pin it to its cv2 path (`EMO_NATIVE_DECODE=0`), the only
-path the port has.
+Both packages read video through their native libav loaders when those
+are built.  These tests pin both to cv2 (`EMO_NATIVE_DECODE=0`), except the
+decode tests, which run once on each decoder (the `decoder` fixture of
+`tests/torch_native.py`: cv2, and both packages on their loaders).
 """
 
 import io
@@ -23,6 +24,7 @@ from multimodalemotionrecognition_torch.data import face, media
 from multimodalemotionrecognition_torch.ops.image import uniform_frame_indices
 
 from tests.test_data import _synthetic_face_video, _write_video
+from tests.torch_native import decoder, jax_loader_path, skip_without_libav  # noqa: F401  (fixtures)
 
 
 @pytest.fixture(autouse=True)
@@ -86,16 +88,38 @@ def test_a_wav_under_another_name_is_read_as_wav(tmp_path):
     )
 
 
-def test_container_audio_and_augmentation_raise(tmp_path):
-    """Container audio raises (the libav loader is not ported), with or
-    without augmentation; the augmented video loaders run, equal to JAX's."""
+@pytest.mark.parametrize("loader", ["libav", "unavailable"])
+def test_container_audio_and_augmentation_raise(tmp_path, monkeypatch, jax_loader_path, loader):  # noqa: F811
+    """Container audio goes through each package's libav loader, equal to
+    JAX's with or without augmentation; with the loader unavailable it
+    raises in both.  The augmented video loaders run either way, equal to
+    JAX's."""
+    from multimodalemotionrecognition_torch.native import medialoader
+
+    from tests.torch_native import jax_medialoader, use_jax_loader
+
+    skip_without_libav()
+    use_jax_loader(monkeypatch, jax_loader_path)
     vid = tmp_path / "clip.mp4"
-    _write_video(vid, _synthetic_face_video(n=4))
+    t = np.arange(32000) / 16000
+    medialoader.encode_av(str(vid), _synthetic_face_video(n=8), fps=10.0,
+                          audio=(0.3 * np.sin(2 * np.pi * 440 * t)).astype(np.float32))
+    if loader == "unavailable":
+        monkeypatch.setattr(medialoader, "available", lambda: False)
+        monkeypatch.setattr(jax_medialoader, "available", lambda: False)
+    else:
+        monkeypatch.setenv("EMO_NATIVE_DECODE", "1")
     for augment in (False, True):
-        with pytest.raises(RuntimeError, match="ROADMAP queue 1, item 4"):
-            media.load_audio_wav(vid, augment=augment)
-    with pytest.raises(RuntimeError):  # the JAX package without its libav loader
-        jax_media.load_audio_wav(vid)
+        if loader == "unavailable":
+            with pytest.raises(RuntimeError, match="native libav loader is unavailable"):
+                media.load_audio_wav(vid, augment=augment)
+            with pytest.raises(RuntimeError):
+                jax_media.load_audio_wav(vid, augment=augment)
+        else:
+            got = media.load_audio_wav(vid, augment=augment, rng=np.random.RandomState(0))
+            assert got.shape == (1, 48000)
+            np.testing.assert_array_equal(
+                got, jax_media.load_audio_wav(vid, augment=augment, rng=np.random.RandomState(0)))
     for fn, jax_fn in ((media.load_video_frames, jax_media.load_video_frames),
                        (media.load_video_frames_u8, jax_media.load_video_frames_u8)):
         got = fn(vid, augment=True, rng=np.random.RandomState(0))
@@ -194,7 +218,7 @@ def face_video(tmp_path_factory):
 
 @pytest.mark.parametrize("use_face_crop, bbox", [(False, None), (True, None), (True, (50, 30, 40, 50))],
                          ids=["full_frame", "detected_crop", "injected_bbox"])
-def test_video_decode_equals_jax(face_video, use_face_crop, bbox):
+def test_video_decode_equals_jax(face_video, decoder, use_face_crop, bbox):
     kw = dict(num_frames=8, size=112, use_face_crop=use_face_crop, bbox=bbox)
     u8 = media.decode_video_frames_u8(face_video, **kw)
     assert u8.shape == (8, 112, 112, 3) and u8.dtype == np.uint8
@@ -209,7 +233,7 @@ def test_video_decode_equals_jax(face_video, use_face_crop, bbox):
     assert (factor, sigma) == (jax_factor, jax_sigma) == (1.0, 0.0)
 
 
-def test_short_video_and_unreadable_file_equal_jax(tmp_path):
+def test_short_video_and_unreadable_file_equal_jax(tmp_path, decoder):
     short = tmp_path / "short.mp4"
     _write_video(short, _synthetic_face_video(n=3))
     garbage = tmp_path / "garbage.mp4"

@@ -2,7 +2,9 @@
 JAX package's, on the same uploads and stream windows.  Arrays are exactly
 equal, except a mel model's log-mel: the port makes it with its own numpy
 twin (`ops/mel.py::log_mel_spectrogram_np`), held within 1e-5 of the JAX
-package's."""
+package's.  Uploads are read through cv2 (`EMO_NATIVE_DECODE=0`) except where
+a test runs once on each decoder (the `decoder` fixture of
+`tests/torch_native.py`: cv2, and both packages on their libav loaders)."""
 
 import io
 
@@ -17,7 +19,8 @@ from multimodalemotionrecognition_tpu.serving.preprocess import (
 from multimodalemotionrecognition_torch.data import face
 from multimodalemotionrecognition_torch.serving.preprocess import EmotionPreprocessService
 
-from tests.test_data import _synthetic_face_video, _write_video
+from tests.test_data import _synthetic_face_video
+from tests.torch_native import decoder, jax_loader_path, skip_without_libav  # noqa: F401  (fixtures)
 
 MEL_ATOL = 1e-5
 
@@ -64,20 +67,41 @@ def test_wav_payload_equals_jax(sr, seconds, raw_uint8, use_wavlm):
     _assert_audio(audio, jaudio, use_wavlm)
 
 
-def test_container_payload_raises_in_both(tmp_path):
-    """A video upload's audio track needs the libav loader, which neither
-    package has here: both raise."""
+@pytest.mark.parametrize("loader", ["libav", "unavailable"])
+def test_container_payload_raises_in_both(tmp_path, monkeypatch, jax_loader_path, loader):  # noqa: F811
+    """A video upload with its audio track: through each package's libav
+    loader both give the same arrays (within 1e-6); with the loader
+    unavailable both raise."""
+    from multimodalemotionrecognition_torch.native import medialoader
+
+    from tests.torch_native import jax_medialoader, use_jax_loader
+
+    skip_without_libav()
+    use_jax_loader(monkeypatch, jax_loader_path)
     path = tmp_path / "clip.mp4"
-    _write_video(path, _synthetic_face_video(n=10))
+    t = np.arange(48000) / 16000
+    medialoader.encode_av(str(path), _synthetic_face_video(n=10), fps=10.0,
+                          audio=(0.3 * np.sin(2 * np.pi * 440 * t)).astype(np.float32))
     data = path.read_bytes()
-    with pytest.raises(RuntimeError, match="ROADMAP queue 1, item 4"):
-        EmotionPreprocessService().preprocess_payload("clip.mp4", data)
-    with pytest.raises(RuntimeError):
-        JaxPreprocess().preprocess_payload("clip.mp4", data)
+    if loader == "unavailable":
+        monkeypatch.setattr(medialoader, "available", lambda: False)
+        monkeypatch.setattr(jax_medialoader, "available", lambda: False)
+        with pytest.raises(RuntimeError, match="native libav loader is unavailable"):
+            EmotionPreprocessService().preprocess_payload("clip.mp4", data)
+        with pytest.raises(RuntimeError):
+            JaxPreprocess().preprocess_payload("clip.mp4", data)
+        return
+    monkeypatch.setenv("EMO_NATIVE_DECODE", "1")
+    video, audio, blank = EmotionPreprocessService().preprocess_payload("clip.mp4", data, use_wavlm=True)
+    jvideo, jaudio, jblank = JaxPreprocess().preprocess_payload("clip.mp4", data, use_wavlm=True)
+    assert blank is jblank is False
+    assert video.shape == (1, 8, 3, 112, 112) and audio.shape == (1, 1, 48000)
+    np.testing.assert_allclose(video, jvideo, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(audio, jaudio, atol=1e-6, rtol=0)
 
 
 @pytest.mark.parametrize("raw_uint8", [True, False], ids=["uint8", "float"])
-def test_file_path_video_and_audio_equal_jax(tmp_path, raw_uint8):
+def test_file_path_video_and_audio_equal_jax(tmp_path, decoder, raw_uint8):
     """The file path on a WAV (no frames: blank video) and its audio."""
     path = tmp_path / "clip.wav"
     path.write_bytes(_wav(22050, 2.0, seed=5))

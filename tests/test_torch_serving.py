@@ -20,6 +20,7 @@
 import asyncio
 import base64
 import io
+from pathlib import Path
 
 import aiohttp
 import cv2
@@ -532,12 +533,26 @@ def test_apps_raise_without_their_checkpoint_or_card(ckpt, tmp_path):  # noqa: F
 # --------------------------------------------------------------------------- the hub
 
 
-@pytest.mark.parametrize("command", ["build-native"])
-def test_hub_refuses_what_is_not_ported(command, capsys):
+@pytest.mark.parametrize("libav", ["found", "missing"])
+def test_hub_refuses_what_is_not_ported(libav, capsys, monkeypatch):
+    """`build-native` builds the libav loader and prints its path; where
+    pkg-config does not find libav it raises with pkg-config's message.
+    Every command of the JAX hub is ported: an unknown one exits 2."""
+    from multimodalemotionrecognition_torch.native import build as native_build
+
+    if libav == "missing":
+        monkeypatch.setattr(native_build, "LIBAV", native_build.LIBAV + ("libnosuchlib_emo",))
+        with pytest.raises(RuntimeError, match="libnosuchlib_emo"):
+            hub.main(["build-native"])
+        return
+    if native_build.missing() is not None:
+        pytest.skip(native_build.missing())
+    hub.main(["build-native"])
+    path = Path(capsys.readouterr().out.strip())
+    assert path == native_build.build() and path.parent == native_build.BUILD_DIR and path.exists()
     with pytest.raises(SystemExit) as e:
-        hub.main([command, "--anything"])
+        hub.main(["build-native", "--anything"])
     assert e.value.code == 2
-    assert "ROADMAP queue 1" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("command, module", [
