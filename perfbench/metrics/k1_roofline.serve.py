@@ -1,0 +1,6 @@
+"""K1's share of its roofline at the served buckets, %."""
+from perfbench import readers
+
+
+def read(run):
+    return readers.roofline(run, "K1", readers.serve_batches(run))

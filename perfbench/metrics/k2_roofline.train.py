@@ -1,0 +1,6 @@
+"""K2's share of its roofline at the training batch, %."""
+from perfbench import readers
+
+
+def read(run):
+    return readers.roofline(run, "K2", readers.train_batches(run))
