@@ -138,6 +138,7 @@ from multimodalemotionrecognition_torch.utils.metrics import (
     confusion_matrix,
     macro_f1,
 )
+from multimodalemotionrecognition_torch.utils.profiling import span
 from multimodalemotionrecognition_torch.utils.seed import set_seed
 
 __all__ = ["AdamState", "EmotionTrainer", "TrainState", "masked_adam_update"]
@@ -602,18 +603,23 @@ class EmotionTrainer:
         with batch_shard(self.shard):
             for i in range(accum):
                 rows = slice(i * mb, (i + 1) * mb)
-                mv = self._device_video(
-                    video[rows], None if aug is None else aug[rows], state.rng.device("videoaug")
-                )
-                out, aux = self._apply(mv, self._audio_features(audio_wav[rows]), True, state.rng)
-                _, cls_i, ctr_i = self._losses(out, aux, labels[rows], valid[rows], denom)
-                (cls_i + a_w * ctr_i / accum).backward()
+                with span("trainer.forward"):
+                    mv = self._device_video(
+                        video[rows], None if aug is None else aug[rows],
+                        state.rng.device("videoaug"),
+                    )
+                    out, aux = self._apply(
+                        mv, self._audio_features(audio_wav[rows]), True, state.rng)
+                    _, cls_i, ctr_i = self._losses(out, aux, labels[rows], valid[rows], denom)
+                with span("trainer.backward"):
+                    (cls_i + a_w * ctr_i / accum).backward()
                 cls_i, ctr_i = cls_i.detach(), ctr_i.detach() / accum
                 cls_loss = cls_i if cls_loss is None else cls_loss + cls_i
                 contrastive = ctr_i if contrastive is None else contrastive + ctr_i
                 preds.append(out.detach().argmax(dim=1))
-        self.reduce_gradients()
-        cls_loss, contrastive = self._global_sum(torch.stack([cls_loss, contrastive]))
+        with span("trainer.reduce"):
+            self.reduce_gradients()
+            cls_loss, contrastive = self._global_sum(torch.stack([cls_loss, contrastive]))
         total = cls_loss + a_w * contrastive
         return total, cls_loss, contrastive, torch.cat(preds)
 
@@ -625,11 +631,12 @@ class EmotionTrainer:
         `mask` and `lrs` are the stage's `trainable_mask` and `lr_tree`;
         `reset_opt` zeroes the optimizer state first (the stage flip)."""
         out = self.loss_and_grads(state, video, audio_wav, labels, valid, mask, aug)
-        live = {n: p for n, p in state.model.named_parameters() if n in state.opt_state.mu}
-        masked_adam_update(
-            state.opt_state, live, {n: p.grad for n, p in live.items()}, mask, lrs,
-            reset_opt, self.tc.weight_decay,
-        )
+        with span("trainer.optimizer"):
+            live = {n: p for n, p in state.model.named_parameters() if n in state.opt_state.mu}
+            masked_adam_update(
+                state.opt_state, live, {n: p.grad for n, p in live.items()}, mask, lrs,
+                reset_opt, self.tc.weight_decay,
+            )
         state.step += 1
         return out
 
@@ -637,13 +644,14 @@ class EmotionTrainer:
     def eval_step(self, state: TrainState, video, audio_wav, labels, valid, aug=None):
         """Eval forward -> (total, cls_loss, contrastive, predictions): the
         losses of the global batch, the predictions of this rank's rows."""
-        video = self._device_video(video, aug, None)
-        denom = self._global_sum(valid.float().sum()).clamp_min(1.0)
-        with batch_shard(self.shard):
-            outputs, aux = self._apply(video, self._audio_features(audio_wav), False, None)
-            losses = self._losses(outputs, aux, labels, valid, denom)
-        total, cls_loss, contrastive = self._global_sum(torch.stack(losses))
-        return total, cls_loss, contrastive, outputs.argmax(dim=1)
+        with span("trainer.forward"):
+            video = self._device_video(video, aug, None)
+            denom = self._global_sum(valid.float().sum()).clamp_min(1.0)
+            with batch_shard(self.shard):
+                outputs, aux = self._apply(video, self._audio_features(audio_wav), False, None)
+                losses = self._losses(outputs, aux, labels, valid, denom)
+            total, cls_loss, contrastive = self._global_sum(torch.stack(losses))
+            return total, cls_loss, contrastive, outputs.argmax(dim=1)
 
     # ------------------------------------------------------------------
     # epochs
@@ -669,23 +677,31 @@ class EmotionTrainer:
         f = cosine_factor(epoch_in_stage, epochs_in_stage)
         return {"fusion": f, "audio": f, "video": f}
 
+    @staticmethod
+    def _fetch(it):
+        """The loader's next batch, None when it is exhausted."""
+        with span("trainer.fetch"):
+            return next(it, None)
+
     def _stage_batch(self, batch):
         """Host arrays -> device tensors.  On CUDA the copies go from pinned
         memory on a side stream without blocking; the event marks their end."""
-        arrays = {"video": batch.video, "audio": batch.audio, "labels": batch.labels,
-                  "valid": batch.valid}
-        if batch.aug is not None:
-            arrays["aug"] = batch.aug
-        tensors = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in arrays.items()}
-        if self._copy_stream is None:
-            return tensors, None
-        with torch.cuda.stream(self._copy_stream):
-            tensors = {
-                k: t.pin_memory().to(self.device, non_blocking=True) for k, t in tensors.items()
-            }
-            event = torch.cuda.Event()
-            event.record()
-        return tensors, event
+        with span("trainer.stage"):
+            arrays = {"video": batch.video, "audio": batch.audio, "labels": batch.labels,
+                      "valid": batch.valid}
+            if batch.aug is not None:
+                arrays["aug"] = batch.aug
+            tensors = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in arrays.items()}
+            if self._copy_stream is None:
+                return tensors, None
+            with torch.cuda.stream(self._copy_stream):
+                tensors = {
+                    k: t.pin_memory().to(self.device, non_blocking=True)
+                    for k, t in tensors.items()
+                }
+                event = torch.cuda.Event()
+                event.record()
+            return tensors, event
 
     def run_epoch(
         self,
@@ -704,41 +720,47 @@ class EmotionTrainer:
         ride under step N's compute; per-step scalars and predictions stay
         on the device until ONE fetch at the epoch's end, so the loop never
         waits for the device between steps.  Data parallel: the losses and
-        metrics are the global batches' on every rank."""
+        metrics are the global batches' on every rank.
+
+        Under a profiler each phase is a `trainer.*` span on the profiler's
+        clock (`utils/profiling.py::span`): step, fetch, stage, forward,
+        backward, reduce, optimizer, epoch_sync."""
         totals_dev, preds_dev = [], []
         sizes, valids, labels_list = [], [], []
         first = True
         it = iter(loader)
-        batch = next(it, None)
+        batch = self._fetch(it)
         staged = self._stage_batch(batch) if batch is not None else None
         while batch is not None:
-            sb, event = staged
-            if event is not None:
-                torch.cuda.current_stream(self.device).wait_event(event)
-                for t in sb.values():
-                    t.record_stream(torch.cuda.current_stream(self.device))
-            args = (sb["video"], sb["audio"], sb["labels"], sb["valid"])
-            if train:
-                reset = reset_opt_first and first
-                first = False
-                total, cls_l, ctr_l, preds = self.train_step(
-                    state, *args, mask, lrs, reset, sb.get("aug")
-                )
-            else:
-                total, cls_l, ctr_l, preds = self.eval_step(state, *args, sb.get("aug"))
-            totals_dev.append(torch.stack([total, cls_l, ctr_l]))
-            preds_dev.append(preds)
-            sizes.append(batch.size)
-            valids.append(np.asarray(batch.valid))
-            labels_list.append(np.asarray(batch.labels))
-            batch = next(it, None)
-            staged = self._stage_batch(batch) if batch is not None else None
+            with span("trainer.step"):
+                sb, event = staged
+                if event is not None:
+                    torch.cuda.current_stream(self.device).wait_event(event)
+                    for t in sb.values():
+                        t.record_stream(torch.cuda.current_stream(self.device))
+                args = (sb["video"], sb["audio"], sb["labels"], sb["valid"])
+                if train:
+                    reset = reset_opt_first and first
+                    first = False
+                    total, cls_l, ctr_l, preds = self.train_step(
+                        state, *args, mask, lrs, reset, sb.get("aug")
+                    )
+                else:
+                    total, cls_l, ctr_l, preds = self.eval_step(state, *args, sb.get("aug"))
+                totals_dev.append(torch.stack([total, cls_l, ctr_l]))
+                preds_dev.append(preds)
+                sizes.append(batch.size)
+                valids.append(np.asarray(batch.valid))
+                labels_list.append(np.asarray(batch.labels))
+                batch = self._fetch(it)
+                staged = self._stage_batch(batch) if batch is not None else None
 
         totals = np.zeros(3)
         n = 0
         preds = labels = np.zeros(0)
         if totals_dev:
-            fetched = torch.stack(totals_dev).double().cpu().numpy()  # the one sync per epoch
+            with span("trainer.epoch_sync"):  # the one sync per epoch
+                fetched = torch.stack(totals_dev).double().cpu().numpy()
             if self.shard is not None:
                 sizes = self._global_sum(
                     torch.tensor(sizes, dtype=torch.int64, device=self.device)).tolist()

@@ -1,0 +1,6 @@
+"""Share of the card's idle time in the traced epoch (gaps between its first and last kernel) that lies under no `trainer.*` span, %."""
+from perfbench import spans
+
+
+def read(run):
+    return spans.idle_share(run, "outside")
