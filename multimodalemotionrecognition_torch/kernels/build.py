@@ -50,10 +50,11 @@ _DROPOUT = [_I, ctypes.c_uint, _F, ctypes.c_uint, _F]
 # C entry points: name -> argtypes (every function returns a cudaError_t).
 _SIGNATURES = {
     # hidden, q, k, v, gate, bias, wo, bo, lns, lnb, ctx, proj, out, wo_t
-    # (W_o transposed, float32 tensor-core route only, else null),
-    # B, Tp, seq_len, E, H, eps, then the dropout, then the stream
-    "emo_wavlm_attn_f32": [_P] * 14 + [_I] * 5 + [_F] + _DROPOUT + [_P],
-    "emo_wavlm_attn_bf16": [_P] * 14 + [_I] * 5 + [_F] + _DROPOUT + [_P],
+    # (W_o transposed, float32 tensor-core route only, else null), seed_dev
+    # (the dropout seed as an int32 in device memory, else null: the seed
+    # argument), B, Tp, seq_len, E, H, eps, then the dropout, then the stream
+    "emo_wavlm_attn_f32": [_P] * 15 + [_I] * 5 + [_F] + _DROPOUT + [_P],
+    "emo_wavlm_attn_bf16": [_P] * 15 + [_I] * 5 + [_F] + _DROPOUT + [_P],
     # dout, q, k, v, gate, bias, wo, lns, ctx, proj; the ten gradients; seven
     # scratch buffers, then the transposed operands (float32 tensor-core
     # route only, else null); B, Tp, seq_len, E, H, col_chunks, eps, dropout,

@@ -63,4 +63,11 @@ __device__ __forceinline__ unsigned hidden_stream(unsigned seed, int b) {
   return dropout_stream(seed, b) + 0x7FEB352Du;
 }
 
+// K1's dropout seed: the int32 at `seed_dev` where the caller keeps it in
+// device memory (a captured CUDA graph replays each step's seed from
+// there), else the `seed` argument.  Each kernel reads it first thing.
+__device__ __forceinline__ unsigned k1_seed(unsigned seed, const int* seed_dev) {
+  return seed_dev != nullptr ? static_cast<unsigned>(__ldg(seed_dev)) : seed;
+}
+
 }  // namespace emo

@@ -81,8 +81,9 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
 wavlm_attn_core(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const float* __restrict__ gate,
                 const float* __restrict__ bias, T* __restrict__ ctx, int Tp,
-                int seq_len, int E, int H, unsigned seed, unsigned attn_thr,
-                float attn_inv) {
+                int seq_len, int E, int H, unsigned seed, const int* __restrict__ seed_dev,
+                unsigned attn_thr, float attn_inv) {
+  seed = emo::k1_seed(seed, seed_dev);  // issued first: its latency hides under the loads
   extern __shared__ float smem[];
   const int dh = E / H;
   const int ks_stride = dh + 1;
@@ -120,7 +121,9 @@ __global__ void __launch_bounds__(kGemmThreads)
 wavlm_attn_out_proj(const T* __restrict__ ctx, const T* __restrict__ hidden,
                     const T* __restrict__ wo, const float* __restrict__ bo,
                     float* __restrict__ proj, int M, int Tp, int seq_len, int E,
-                    unsigned seed, unsigned hid_thr, float hid_inv) {
+                    unsigned seed, const int* __restrict__ seed_dev, unsigned hid_thr,
+                    float hid_inv) {
+  seed = emo::k1_seed(seed, seed_dev);  // issued first: its latency hides under the loads
   __shared__ float As[kBK][kBM + 4];
   __shared__ float Bs[kBK][kBN];
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
@@ -168,13 +171,14 @@ template <typename T>
 int launch(const void* hidden, const void* q, const void* k, const void* v,
            const void* gate, const void* bias, const void* wo, const void* bo,
            const void* lns, const void* lnb, void* ctx, void* proj, void* out,
-           const void* wo_t, int B, int Tp, int seq_len, int E, int H, float eps, int seed,
-           unsigned attn_thr, float attn_inv, unsigned hid_thr, float hid_inv,
-           void* stream_ptr) {
+           const void* wo_t, const void* seed_dev_ptr, int B, int Tp, int seq_len, int E, int H,
+           float eps, int seed, unsigned attn_thr, float attn_inv, unsigned hid_thr,
+           float hid_inv, void* stream_ptr) {
   if (B < 1 || H < 1 || E % H != 0 || seq_len < 1 || seq_len > Tp ||
       E > 32 * kLnMaxPerLane)
     return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int* seed_dev = static_cast<const int*>(seed_dev_ptr);
   const int dh = E / H;
 
   const int M = B * Tp;
@@ -190,8 +194,8 @@ int launch(const void* hidden, const void* q, const void* k, const void* v,
         static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(gate), static_cast<const float*>(bias),
         static_cast<const float*>(wo_t), static_cast<const float*>(bo), static_cast<float*>(ctx),
-        static_cast<float*>(proj), B, Tp, seq_len, E, H, (unsigned)seed, attn_thr, attn_inv,
-        hid_thr, hid_inv, stream);
+        static_cast<float*>(proj), B, Tp, seq_len, E, H, (unsigned)seed, seed_dev, attn_thr,
+        attn_inv, hid_thr, hid_inv, stream);
     if (err != cudaSuccess) return err;
   } else if (tensor_cores) {
     const cudaError_t err = emo::tc::launch_core_and_proj(
@@ -200,7 +204,7 @@ int launch(const void* hidden, const void* q, const void* k, const void* v,
         static_cast<const float*>(gate), static_cast<const float*>(bias),
         static_cast<const __nv_bfloat16*>(wo), static_cast<const float*>(bo),
         static_cast<__nv_bfloat16*>(ctx), static_cast<float*>(proj), B, Tp, seq_len, E, H,
-        (unsigned)seed, attn_thr, attn_inv, hid_thr, hid_inv, stream);
+        (unsigned)seed, seed_dev, attn_thr, attn_inv, hid_thr, hid_inv, stream);
     if (err != cudaSuccess) return err;
   } else {
     const size_t smem_a = sizeof(float) * ((size_t)seq_len * (2 * dh + 1) +
@@ -213,7 +217,7 @@ int launch(const void* hidden, const void* q, const void* k, const void* v,
     wavlm_attn_core<T><<<grid_a, kAttnWarps * 32, smem_a, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const float*>(gate), static_cast<const float*>(bias),
-        static_cast<T*>(ctx), Tp, seq_len, E, H, (unsigned)seed, attn_thr, attn_inv);
+        static_cast<T*>(ctx), Tp, seq_len, E, H, (unsigned)seed, seed_dev, attn_thr, attn_inv);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
 
@@ -221,7 +225,8 @@ int launch(const void* hidden, const void* q, const void* k, const void* v,
     wavlm_attn_out_proj<T><<<grid_b, kGemmThreads, 0, stream>>>(
         static_cast<const T*>(ctx), static_cast<const T*>(hidden),
         static_cast<const T*>(wo), static_cast<const float*>(bo),
-        static_cast<float*>(proj), M, Tp, seq_len, E, (unsigned)seed, hid_thr, hid_inv);
+        static_cast<float*>(proj), M, Tp, seq_len, E, (unsigned)seed, seed_dev, hid_thr,
+        hid_inv);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -235,19 +240,20 @@ int launch(const void* hidden, const void* q, const void* k, const void* v,
 }  // namespace
 
 // wo_t: W_o transposed, [E_out, E_in], read by the float32 tensor-core
-// route only (null elsewhere).
+// route only (null elsewhere).  seed_dev: null, or one int32 in device
+// memory that every launch reads as the dropout seed in place of `seed`.
 #define EMO_WAVLM_ATTN_ENTRY(NAME, T)                                           \
   extern "C" int NAME(const void* hidden, const void* q, const void* k,        \
                       const void* v, const void* gate, const void* bias,       \
                       const void* wo, const void* bo, const void* lns,         \
                       const void* lnb, void* ctx, void* proj, void* out,       \
-                      const void* wo_t, int B, int Tp, int seq_len, int E,     \
-                      int H, float eps, int seed, unsigned attn_thr,           \
-                      float attn_inv, unsigned hid_thr, float hid_inv,         \
-                      void* stream) {                                          \
+                      const void* wo_t, const void* seed_dev, int B, int Tp,   \
+                      int seq_len, int E, int H, float eps, int seed,          \
+                      unsigned attn_thr, float attn_inv, unsigned hid_thr,     \
+                      float hid_inv, void* stream) {                           \
     return launch<T>(hidden, q, k, v, gate, bias, wo, bo, lns, lnb, ctx, proj, \
-                     out, wo_t, B, Tp, seq_len, E, H, eps, seed, attn_thr,     \
-                     attn_inv, hid_thr, hid_inv, stream);                      \
+                     out, wo_t, seed_dev, B, Tp, seq_len, E, H, eps, seed,     \
+                     attn_thr, attn_inv, hid_thr, hid_inv, stream);            \
   }
 
 EMO_WAVLM_ATTN_ENTRY(emo_wavlm_attn_f32, float)

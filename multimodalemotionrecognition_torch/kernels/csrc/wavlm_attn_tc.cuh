@@ -65,7 +65,9 @@ __global__ void __launch_bounds__(kCoreWarps * 32)
 attn_core_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v, const float* __restrict__ gate,
               const float* __restrict__ bias, __nv_bfloat16* __restrict__ ctx, int Tp,
-              int seq_len, int E, int H, unsigned seed, unsigned attn_thr, float attn_inv) {
+              int seq_len, int E, int H, unsigned seed, const int* __restrict__ seed_dev,
+              unsigned attn_thr, float attn_inv) {
+  seed = k1_seed(seed, seed_dev);  // issued first: its latency hides under the loads
   static_assert(kKeys % 16 == 0 && kKeys <= kMaxKeys, "keys held: a multiple of 16, <= 160");
   constexpr int kTiles = kKeys / 8;  // n8 score tiles
   __shared__ __align__(16) __nv_bfloat16 Ks[kKeys * kRowStride];
@@ -218,7 +220,8 @@ static __global__ void __launch_bounds__(kPThreads)
 out_proj_mma(const __nv_bfloat16* __restrict__ ctx, const __nv_bfloat16* __restrict__ hidden,
              const __nv_bfloat16* __restrict__ wo, const float* __restrict__ bo,
              float* __restrict__ proj, int M, int Tp, int seq_len, int E, unsigned seed,
-             unsigned hid_thr, float hid_inv) {
+             const int* __restrict__ seed_dev, unsigned hid_thr, float hid_inv) {
+  seed = k1_seed(seed, seed_dev);  // issued first: its latency hides under the loads
   __shared__ __align__(16) __nv_bfloat16 As[kPStages][kPM * kAStride];
   __shared__ __align__(16) __nv_bfloat16 Bs[kPStages][kPK * kBStride];
   const int m0 = blockIdx.y * kPM, n0 = blockIdx.x * kPN;
@@ -316,8 +319,8 @@ static cudaError_t launch_core_and_proj(
     const __nv_bfloat16* hidden, const __nv_bfloat16* q, const __nv_bfloat16* k,
     const __nv_bfloat16* v, const float* gate, const float* bias, const __nv_bfloat16* wo,
     const float* bo, __nv_bfloat16* ctx, float* proj, int B, int Tp, int seq_len, int E, int H,
-    unsigned seed, unsigned attn_thr, float attn_inv, unsigned hid_thr, float hid_inv,
-    cudaStream_t stream) {
+    unsigned seed, const int* seed_dev, unsigned attn_thr, float attn_inv, unsigned hid_thr,
+    float hid_inv, cudaStream_t stream) {
   if (E % kPN != 0 || seq_len > kMaxKeys) return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(hidden) | reinterpret_cast<uintptr_t>(q) |
        reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
@@ -327,15 +330,15 @@ static cudaError_t launch_core_and_proj(
   const dim3 grid_a((seq_len + kCoreRows - 1) / kCoreRows, H, B);
   if (seq_len <= 64)
     attn_core_mma<64><<<grid_a, kCoreWarps * 32, 0, stream>>>(
-        q, k, v, gate, bias, ctx, Tp, seq_len, E, H, seed, attn_thr, attn_inv);
+        q, k, v, gate, bias, ctx, Tp, seq_len, E, H, seed, seed_dev, attn_thr, attn_inv);
   else
     attn_core_mma<kMaxKeys><<<grid_a, kCoreWarps * 32, 0, stream>>>(
-        q, k, v, gate, bias, ctx, Tp, seq_len, E, H, seed, attn_thr, attn_inv);
+        q, k, v, gate, bias, ctx, Tp, seq_len, E, H, seed, seed_dev, attn_thr, attn_inv);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int M = B * Tp;
   out_proj_mma<<<dim3(E / kPN, (M + kPM - 1) / kPM), kPThreads, 0, stream>>>(
-      ctx, hidden, wo, bo, proj, M, Tp, seq_len, E, seed, hid_thr, hid_inv);
+      ctx, hidden, wo, bo, proj, M, Tp, seq_len, E, seed, seed_dev, hid_thr, hid_inv);
   return cudaGetLastError();
 }
 

@@ -87,8 +87,10 @@ __global__ void __launch_bounds__(kCoreWarps * 32)
 attn_core_tf32(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ gate,
                const float* __restrict__ bias, float* __restrict__ ctx, int Tp, int seq_len,
-               int E, int H, unsigned seed, unsigned attn_thr, float attn_inv) {
+               int E, int H, unsigned seed, const int* __restrict__ seed_dev, unsigned attn_thr,
+               float attn_inv) {
   using namespace sm90;
+  seed = k1_seed(seed, seed_dev);  // issued first: its latency hides under the loads
   static_assert(kKeys == 64 || kKeys == kMaxKeys, "the score tile's N: 64 or 160 keys");
   static_assert(kCoreWarps == 4, "one warpgroup: wgmma's 64 rows");
   constexpr int kTiles = kKeys / 8;  // n8 score tiles, and k8 steps of P . V
@@ -269,8 +271,9 @@ static __global__ void __launch_bounds__(kPThreads)
 out_proj_tf32(__grid_constant__ const CUtensorMap map_ctx, __grid_constant__ const CUtensorMap map_wt,
               const float* __restrict__ hidden, const float* __restrict__ bo,
               float* __restrict__ proj, int M, int Tp, int seq_len, int E, unsigned seed,
-              unsigned hid_thr, float hid_inv) {
+              const int* __restrict__ seed_dev, unsigned hid_thr, float hid_inv) {
   using namespace sm90;
+  seed = k1_seed(seed, seed_dev);  // issued first: its latency hides under the loads
   extern __shared__ uint8_t proj_smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(proj_smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -376,14 +379,14 @@ out_proj_tf32(__grid_constant__ const CUtensorMap map_ctx, __grid_constant__ con
 template <int kKeys>
 static cudaError_t launch_core(dim3 grid, const float* q, const float* k, const float* v,
                                const float* gate, const float* bias, float* ctx, int Tp,
-                               int seq_len, int E, int H, unsigned seed, unsigned attn_thr,
-                               float attn_inv, cudaStream_t stream) {
+                               int seq_len, int E, int H, unsigned seed, const int* seed_dev,
+                               unsigned attn_thr, float attn_inv, cudaStream_t stream) {
   constexpr int bytes = core_smem_bytes(kKeys);
   const cudaError_t err = cudaFuncSetAttribute(
       attn_core_tf32<kKeys>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   attn_core_tf32<kKeys><<<grid, kCoreWarps * 32, bytes, stream>>>(
-      q, k, v, gate, bias, ctx, Tp, seq_len, E, H, seed, attn_thr, attn_inv);
+      q, k, v, gate, bias, ctx, Tp, seq_len, E, H, seed, seed_dev, attn_thr, attn_inv);
   return cudaGetLastError();
 }
 
@@ -394,8 +397,8 @@ static cudaError_t launch_core(dim3 grid, const float* q, const float* k, const 
 static cudaError_t launch_core_and_proj(
     const float* hidden, const float* q, const float* k, const float* v, const float* gate,
     const float* bias, const float* wo_t, const float* bo, float* ctx, float* proj, int B, int Tp,
-    int seq_len, int E, int H, unsigned seed, unsigned attn_thr, float attn_inv,
-    unsigned hid_thr, float hid_inv, cudaStream_t stream) {
+    int seq_len, int E, int H, unsigned seed, const int* seed_dev, unsigned attn_thr,
+    float attn_inv, unsigned hid_thr, float hid_inv, cudaStream_t stream) {
   if (E % kPN != 0 || seq_len > kMaxKeys || wo_t == nullptr) return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(hidden) | reinterpret_cast<uintptr_t>(q) |
        reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
@@ -405,10 +408,10 @@ static cudaError_t launch_core_and_proj(
   const dim3 grid_a((seq_len + kCoreRows - 1) / kCoreRows, H, B);
   cudaError_t err =
       seq_len <= 64
-          ? launch_core<64>(grid_a, q, k, v, gate, bias, ctx, Tp, seq_len, E, H, seed, attn_thr,
-                            attn_inv, stream)
+          ? launch_core<64>(grid_a, q, k, v, gate, bias, ctx, Tp, seq_len, E, H, seed, seed_dev,
+                            attn_thr, attn_inv, stream)
           : launch_core<kMaxKeys>(grid_a, q, k, v, gate, bias, ctx, Tp, seq_len, E, H, seed,
-                                  attn_thr, attn_inv, stream);
+                                  seed_dev, attn_thr, attn_inv, stream);
   if (err != cudaSuccess) return err;
   const int M = B * Tp;
   CUtensorMap map_ctx, map_wt;
@@ -422,7 +425,7 @@ static cudaError_t launch_core_and_proj(
                                kProjSmemBytes);
   if (err != cudaSuccess) return err;
   out_proj_tf32<<<dim3(E / kPN, (M + kPM - 1) / kPM), kPThreads, kProjSmemBytes, stream>>>(
-      map_ctx, map_wt, hidden, bo, proj, M, Tp, seq_len, E, seed, hid_thr, hid_inv);
+      map_ctx, map_wt, hidden, bo, proj, M, Tp, seq_len, E, seed, seed_dev, hid_thr, hid_inv);
   return cudaGetLastError();
 }
 

@@ -36,6 +36,11 @@ Dropout (training): `attn_dropout` drops softmax probabilities and
 JAX package's stateless hash (`hash_keep_plain` is `_hash_keep` bit for
 bit), seeded by one int32 `dropout_seed` that the caller draws on the host
 (a data-parallel rank shifts it to its first row: `shifted_dropout_seed`).
+K1's forward can instead read the seed at run time from `seed_dev`, a
+one-element int32 tensor on the device: a CUDA graph captured around the
+call then replays with whatever seed the tensor holds
+(`train/prefix_graph.py`, the frozen layers of a train step, which K2 never
+differentiates).
 The attention mask's index stride is the padded `Tp`, as in the JAX kernel:
 equal seeds give equal masks only at equal `Tp`.
 
@@ -396,6 +401,7 @@ def wavlm_attention_sublayer_forward(
     num_heads: int, seq_len: int, eps: float = 1e-5,
     attn_dropout: float = 0.0, hidden_dropout: float = 0.0,
     dropout_seed: Optional[int] = None,
+    seed_dev: Optional[torch.Tensor] = None,
 ):
     """K1 -> (out, ctx, pre): the sublayer's output and the two buffers K2
     reads, the attention context [B, Tp, E] in the compute dtype and the
@@ -403,18 +409,25 @@ def wavlm_attention_sublayer_forward(
     backward recomputes them).  Runs the registered operator
     `torch.ops.emo.wavlm_attention_sublayer`, so `torch.export` records it
     as one node.  Not recorded by autograd: `wavlm_attention_sublayer` is
-    the differentiable entry."""
+    the differentiable entry.  `seed_dev`, a one-element int32 tensor on
+    hidden's device, is read at run time as the dropout seed in place of
+    `dropout_seed`."""
     args = (hidden, q, k, v, gate, position_bias, wo, bo, ln_scale, ln_bias)
     for name, rate in (("attn_dropout", attn_dropout), ("hidden_dropout", hidden_dropout)):
         if not 0.0 <= rate < 1.0:
             raise ValueError(f"{name}={rate} outside [0, 1)")
-    if (attn_dropout > 0.0 or hidden_dropout > 0.0) and dropout_seed is None:
+    if seed_dev is not None:
+        if (seed_dev.shape != (1,) or seed_dev.dtype != torch.int32
+                or seed_dev.device != hidden.device):
+            raise ValueError(f"seed_dev must be a one-element int32 tensor on {hidden.device}, "
+                             f"got {seed_dev.dtype} {tuple(seed_dev.shape)} on {seed_dev.device}")
+    elif (attn_dropout > 0.0 or hidden_dropout > 0.0) and dropout_seed is None:
         raise ValueError("dropout_seed is required when a dropout rate is above 0")
     _validate(*args, num_heads, seq_len)
     if hidden.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {hidden.device}")
     out, ctx, pre = _k1_op(*args, num_heads, seq_len, eps, attn_dropout, hidden_dropout,
-                           dropout_seed)
+                           dropout_seed, seed_dev)
     if hidden.device.type == "cpu":
         return out, None, None
     return out, ctx, pre
@@ -426,9 +439,12 @@ def _k1_op(
     gate: torch.Tensor, position_bias: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
     ln_scale: torch.Tensor, ln_bias: torch.Tensor, num_heads: int, seq_len: int, eps: float,
     attn_dropout: float, hidden_dropout: float, dropout_seed: Optional[int],
+    seed_dev: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1 as an operator.  On the CPU the plain version; ctx and pre are
     empty there (an operator returns tensors, never None)."""
+    if seed_dev is not None:
+        dropout_seed = int(seed_dev[0])
     out = wavlm_attention_sublayer_plain(
         hidden, q, k, v, gate, position_bias, wo, bo, ln_scale, ln_bias,
         num_heads, seq_len, eps, attn_dropout, hidden_dropout, dropout_seed,
@@ -438,7 +454,7 @@ def _k1_op(
 
 @_k1_op.register_fake
 def _k1_fake(hidden, q, k, v, gate, position_bias, wo, bo, ln_scale, ln_bias, num_heads,
-             seq_len, eps, attn_dropout, hidden_dropout, dropout_seed):
+             seq_len, eps, attn_dropout, hidden_dropout, dropout_seed, seed_dev=None):
     if hidden.device.type == "cpu":
         return (torch.empty_like(hidden), hidden.new_empty(0),
                 hidden.new_empty(0, dtype=torch.float32))
@@ -448,7 +464,7 @@ def _k1_fake(hidden, q, k, v, gate, position_bias, wo, bo, ln_scale, ln_bias, nu
 
 @_k1_op.register_kernel("cuda")
 def _k1_cuda(hidden, q, k, v, gate, position_bias, wo, bo, ln_scale, ln_bias, num_heads,
-             seq_len, eps, attn_dropout, hidden_dropout, dropout_seed):
+             seq_len, eps, attn_dropout, hidden_dropout, dropout_seed, seed_dev=None):
     """K1 on the card: one call of the C entry, three launches."""
     args = (hidden, q, k, v, gate, position_bias, wo, bo, ln_scale, ln_bias)
     b, tp, e = hidden.shape
@@ -475,6 +491,7 @@ def _k1_cuda(hidden, q, k, v, gate, position_bias, wo, bo, ln_scale, ln_bias, nu
         err = fn(
             *(t.data_ptr() for t in (*args, ctx, pre, out)),
             None if wo_t is None else wo_t.data_ptr(),
+            None if seed_dev is None else seed_dev.data_ptr(),
             b, tp, seq_len, e, num_heads, eps,
             *_dropout_args(attn_dropout, hidden_dropout, dropout_seed), stream,
         )
@@ -612,16 +629,20 @@ def wavlm_attention_sublayer(
     attn_dropout: float = 0.0,
     hidden_dropout: float = 0.0,
     dropout_seed: Optional[int] = None,  # int32, required when a rate is above 0
+    seed_dev: Optional[torch.Tensor] = None,  # [1] int32 on the device: the seed at run time
 ) -> torch.Tensor:
     """-> LayerNorm(hidden + dropout(attention @ wo + bo)): [B, Tp, E] in
     hidden's dtype, differentiable in all ten tensors.  Where autograd
-    records none of them (serving, `torch.export`), the operator is called
-    directly and K2 has nothing to pair with."""
+    records none of them (serving, `torch.export`, frozen layers), the
+    operator is called directly and K2 has nothing to pair with.  A seed
+    read from `seed_dev` is only for such calls: K2 takes it by value."""
     tensors = (hidden, q, k, v, gate, position_bias, wo, bo, ln_scale, ln_bias)
     statics = (num_heads, seq_len, eps, attn_dropout, hidden_dropout, dropout_seed)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        if seed_dev is not None:
+            raise ValueError("seed_dev on a differentiated call: K2 takes the seed by value")
         return _Sublayer.apply(*tensors, statics)
-    return wavlm_attention_sublayer_forward(*tensors, *statics)[0]
+    return wavlm_attention_sublayer_forward(*tensors, *statics, seed_dev)[0]
 
 
 wavlm_attention_sublayer.launches = 0

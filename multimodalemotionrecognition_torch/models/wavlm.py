@@ -27,7 +27,11 @@ layer above 0 per step; a dropped layer is skipped outright, which is the
 same function as computing it and keeping the input).  The first
 `fused_train_layers` layers take K1 with its two in-kernel dropouts, seeded
 per layer call from the host side of the "dropout" stream; K3 runs only
-when `fused_train_conv` says the feature extractor is frozen.
+when `fused_train_conv` says the feature extractor is frozen.  A layer's
+host draws (`WavLMModel.layer_runs`, `WavLMEncoderLayer.draw_seed`) are
+apart from its device work (`WavLMEncoderLayer.compute`), so that the
+trainer's `train/prefix_graph.py` can replay the frozen front end and
+layers from CUDA graphs (`WavLMModel.prefix_graphs`) after the same draws.
 
 Tensor parallelism (`parallel/tensor.py::shard_module_`): each encoder
 layer's q/k/v and FFN up-projection become column-parallel pieces and its
@@ -166,14 +170,28 @@ class WavLMAttentionSelf(nn.Module):
         self.gru_rel_pos_const = nn.Parameter(torch.ones(1, h, 1, 1))
         if has_relative_position_bias:
             self.rel_attn_embed = nn.Embedding(config.num_buckets, h)
+        self._bucket_tables = {}
+
+    def bucket_table(self, t: int, device) -> torch.Tensor:
+        """The [T, T] bucket indices on `device`, made once per (T, device):
+        a host-to-device copy on every forward would be a launch more, and
+        no CUDA graph can hold a copy from pageable memory.  Under
+        `torch.export` the table is made and not kept (a graph constant)."""
+        key = (t, torch.device(device))
+        table = self._bucket_tables.get(key)
+        if table is None:
+            cfg = self.config
+            buckets = _relative_position_buckets(t, t, cfg.num_buckets, cfg.max_bucket_distance)
+            table = torch.from_numpy(buckets).to(device)
+            if not torch.compiler.is_compiling():
+                self._bucket_tables[key] = table
+        return table
 
     def relative_position_bias(self, t: int, device) -> torch.Tensor:
         """[H, T, T] bucketed relative bias (layer 0 owns the embedding)."""
         if not hasattr(self, "rel_attn_embed"):
             raise ValueError("First layer must compute the position bias.")
-        cfg = self.config
-        buckets = _relative_position_buckets(t, t, cfg.num_buckets, cfg.max_bucket_distance)
-        values = self.rel_attn_embed(torch.from_numpy(buckets).to(device))  # [T, T, H]
+        values = self.rel_attn_embed(self.bucket_table(t, device))  # [T, T, H]
         return values.permute(2, 0, 1)
 
     @property
@@ -333,16 +351,47 @@ class WavLMEncoderLayer(nn.Module):
         fused: Optional[bool] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """`fused` None: by `config.fused_attention` (standalone use; the
-        model passes it explicitly).  `train` needs `rng`."""
+        model passes it explicitly).  `train` needs `rng`.  The layer's host
+        draws (`draw_seed`), then its device work (`compute`)."""
         cfg = self.config
-        b, t, e = hidden.shape
         if train and rng is None:
             raise ValueError("a train-mode forward needs rng (RngStreams)")
+        fused = _attention_kernel(cfg.fused_attention if fused is None else fused, hidden,
+                                  self.attention.tensor_parallel)
+        seed = self.draw_seed(rng, hidden.shape[0]) if fused and train else None
+        return self.compute(hidden, position_bias, train, rng, fused, seed)
+
+    def draw_seed(self, rng: RngStreams, rows: int) -> Optional[int]:
+        """A train-mode layer's host draw on K1's route: one dropout seed for
+        the step from the host side of the "dropout" stream, shifted to the
+        global batch's row of this rank's first (`rows` rows a rank); None,
+        and nothing drawn, when both of K1's rates are 0."""
+        cfg = self.config
+        if cfg.attention_dropout > 0.0 or cfg.hidden_dropout > 0.0:
+            return shifted_dropout_seed(rng.kernel_seed("dropout"), row_offset(rows))
+        return None
+
+    def compute(
+        self,
+        hidden: torch.Tensor,
+        position_bias: Optional[torch.Tensor],
+        train: bool,
+        rng: Optional[RngStreams],
+        fused: bool,
+        seed: Optional[int] = None,
+        seed_dev: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The layer's device work once its host draws are made: on K1's
+        route (`fused`) the kernel's dropouts take `seed`, or the int32 that
+        `seed_dev` ([1], on the device) holds when the kernel runs; the
+        modular path and the feed-forward draw from the device side of the
+        "dropout" stream.  -> (output, the position bias, made here when
+        None: layer 0)."""
+        cfg = self.config
+        b, t, e = hidden.shape
         gen = rng.device("dropout") if train else None
         if position_bias is None:
             position_bias = self.attention.relative_position_bias(t, hidden.device)
-        fused = _attention_kernel(cfg.fused_attention if fused is None else fused, hidden,
-                                  self.attention.tensor_parallel)
         if fused:
             attn = self.attention
             q, k, v, gate = attn.projections(hidden)
@@ -351,11 +400,6 @@ class WavLMEncoderLayer(nn.Module):
             # probabilities, projected output) run inside the kernel.
             attn_p = cfg.attention_dropout if train else 0.0
             hid_p = cfg.hidden_dropout if train else 0.0
-            seed = None
-            if attn_p > 0.0 or hid_p > 0.0:
-                # One draw for the step; a data-parallel rank's rows start
-                # at its offset in the global batch.
-                seed = shifted_dropout_seed(rng.kernel_seed("dropout"), row_offset(b))
             hidden = wavlm_attention_sublayer(
                 hidden, q, k, v,
                 gate.float().reshape(b, h * t, 1),
@@ -367,6 +411,7 @@ class WavLMEncoderLayer(nn.Module):
                 attn_dropout=attn_p,
                 hidden_dropout=hid_p,
                 dropout_seed=seed,
+                seed_dev=seed_dev,
             )
         else:
             attn_out = self.attention(hidden, position_bias, gen)
@@ -448,6 +493,9 @@ class WavLMModel(nn.Module):
         self.encoder = _Encoder(config)
         self.layers_run: list = []  # indices of the layers the last forward ran (LayerDrop)
         self._k3_operands = None
+        # Set by the trainer (`train/prefix_graph.py::PrefixGraphs`): replays
+        # the frozen front end and first layers of a train-mode forward.
+        self.prefix_graphs = None
 
     def _make_k3_operands(self):
         """K3's weights for L1..L6, per layer (w_flat, w_split): the tap-major
@@ -475,7 +523,19 @@ class WavLMModel(nn.Module):
 
     def _apply(self, fn, recurse=True):
         self._k3_operands = None  # made for one device and dtype
+        if self.prefix_graphs is not None:
+            self.prefix_graphs.drop()  # captured on one device's weights
         return super()._apply(fn, recurse)
+
+    @property
+    def tensor_parallel(self) -> bool:
+        return any(layer.attention.tensor_parallel for layer in self.encoder.layers)
+
+    def frames(self, samples: int) -> int:
+        """The frames the conv feature extractor makes of `samples` samples."""
+        for k, s in zip(self.config.conv_kernel, self.config.conv_stride):
+            samples = (samples - k) // s + 1
+        return samples
 
     def _conv_features(self, wav: torch.Tensor, train: bool = False) -> torch.Tensor:
         """[B, T_samples] -> conv features [B, T, C] (NWC).  In a train-mode
@@ -535,13 +595,15 @@ class WavLMModel(nn.Module):
         mask = F.max_pool1d(F.pad(starts.float()[:, None], (window - 1, 0)), window, stride=1)
         return torch.where(mask[:, 0, :, None] > 0, self.masked_spec_embed.to(x.dtype), x)
 
-    def forward(
+    def front_end(
         self, input_values: torch.Tensor, train: bool = False,
         rng: Optional[RngStreams] = None,
     ) -> torch.Tensor:
+        """Waveform [B, T_samples] -> the first encoder layer's input [B, T, E]:
+        conv features, feature projection, positional conv and LayerNorm;
+        in training with the projection's and the encoder's dropouts and the
+        span masking, all drawn on the device."""
         cfg = self.config
-        if train and rng is None:
-            raise ValueError("a train-mode forward needs rng (RngStreams)")
         gen = rng.device("dropout") if train else None
         x = self._conv_features(input_values, train)
         x = self.feature_projection.projection(self.feature_projection.layer_norm(x))
@@ -558,22 +620,41 @@ class WavLMModel(nn.Module):
         x = self.encoder.layer_norm(x)
         if train:
             x = dropout(x, cfg.hidden_dropout, gen)
+        return x
 
+    def layer_runs(self, i: int, train: bool, rng: Optional[RngStreams]) -> bool:
+        """Batch-level LayerDrop (HF WavLMEncoder.forward): one host draw per
+        layer above 0 per train step; layer 0 always runs (it owns the
+        position bias)."""
+        p = self.config.layerdrop
+        return not (train and i > 0 and p > 0.0 and rng.uniform("layerdrop") < p)
+
+    def forward(
+        self, input_values: torch.Tensor, train: bool = False,
+        rng: Optional[RngStreams] = None,
+    ) -> torch.Tensor:
+        cfg = self.config
+        if train and rng is None:
+            raise ValueError("a train-mode forward needs rng (RngStreams)")
         # Eval takes the attention kernel in every layer; training in the
         # first `fused_train_layers` (the trainer sets the whole stack).
         n_layers = len(self.encoder.layers)
         n_fused = 0
-        tensor_parallel = any(layer.attention.tensor_parallel for layer in self.encoder.layers)
-        if _attention_kernel(cfg.fused_attention, x, tensor_parallel):
+        if _attention_kernel(cfg.fused_attention, input_values, self.tensor_parallel):
             n_fused = min(max(0, cfg.fused_train_layers), n_layers) if train else n_layers
-        position_bias = None
-        self.layers_run = []
-        for i, layer in enumerate(self.encoder.layers):
-            # Batch-level LayerDrop (HF WavLMEncoder.forward): one draw per
-            # layer per step; layer 0 always runs (it owns the position bias).
-            if train and i > 0 and cfg.layerdrop > 0.0 and rng.uniform("layerdrop") < cfg.layerdrop:
+        graphs = self.prefix_graphs
+        if train and graphs is not None and graphs.engages(self, input_values, n_fused):
+            # The frozen front end and layers 0..n-1 (sets `layers_run`).
+            x, position_bias = graphs.run(self, input_values, rng)
+            start = graphs.n_prefix
+        else:
+            x, position_bias, start = self.front_end(input_values, train, rng), None, 0
+            self.layers_run = []
+        for i in range(start, n_layers):
+            if not self.layer_runs(i, train, rng):
                 continue
-            x, position_bias = layer(x, position_bias, train, rng, fused=i < n_fused)
+            x, position_bias = self.encoder.layers[i](x, position_bias, train, rng,
+                                                      fused=i < n_fused)
             self.layers_run.append(i)
         return x
 

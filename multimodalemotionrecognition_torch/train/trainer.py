@@ -33,7 +33,10 @@ deterministic step is held against the JAX trainer for every family.
 The WavLM encoder layers run the hand-written attention kernel in the train
 step too (forward with its in-kernel dropouts, and its backward kernel for
 trainable layers), and the frozen conv feature extractor runs the conv
-kernel; see `kernels/wavlm_attn.py`, `kernels/conv_fe.py`.
+kernel; see `kernels/wavlm_attn.py`, `kernels/conv_fe.py`.  On the card,
+the WavLM front end and layers that the freeze policy keeps frozen in every
+stage are replayed from CUDA graphs after the step's first (`PrefixGraphs`,
+`train/prefix_graph.py`), with the same draws and the same results.
 
 As in the JAX trainer: the CLIP alignment term (`fusion_align_mode="clip"`,
 total = cls + fusion_align_weight * InfoNCE); gradient accumulation
@@ -110,6 +113,7 @@ from multimodalemotionrecognition_torch.convert.checkpoint import (
     normalize_torch_state_dict,
 )
 from multimodalemotionrecognition_torch.models.factory import build_model
+from multimodalemotionrecognition_torch.models.wavlm import WavLMModel
 from multimodalemotionrecognition_torch.ops.mel import log_mel_spectrogram
 from multimodalemotionrecognition_torch.ops.stochastic import RngStreams, draw_rows
 from multimodalemotionrecognition_torch.parallel.distributed import (
@@ -132,6 +136,7 @@ from multimodalemotionrecognition_torch.train.freeze import (
     trainable_mask,
     wavlm_frozen_prefix,
 )
+from multimodalemotionrecognition_torch.train.prefix_graph import PrefixGraphs
 from multimodalemotionrecognition_torch.utils.device import require_device
 from multimodalemotionrecognition_torch.utils.metrics import (
     accuracy,
@@ -292,6 +297,7 @@ class EmotionTrainer:
         self.is_main = self.shard is None or self.shard.rank == 0
         self.is_single_modality = model_config.fusion in {"audio", "video"}
         self.model: Optional[torch.nn.Module] = None
+        self.prefix_graphs: Optional[PrefixGraphs] = None
         self.metrics_log: list = []
         self._cast_cache: Dict[str, Tuple[int, torch.Tensor]] = {}
         self._active_mask: Optional[Dict[str, bool]] = None
@@ -424,6 +430,10 @@ class EmotionTrainer:
         self.model = build_model(self.mc, device=self.device, generator=generator)
         if len(self.row) > 1:
             shard_module_(self.model, self.row)
+        self.prefix_graphs = PrefixGraphs(*wavlm_frozen_prefix(self.mc, self.tc))
+        for module in self.model.modules():
+            if isinstance(module, WavLMModel):
+                module.prefix_graphs = self.prefix_graphs
         self._cast_cache.clear()
         self._active_mask = None
         masks = [self.trainable_mask(s) for s in self._stages()]

@@ -29,6 +29,13 @@ calling thread:
   trainer.epoch_sync   the epoch's one fetch of its losses, where the host
                        waits for the card's backlog
 
+and, inside `trainer.forward`, the frozen WavLM prefix
+(`train/prefix_graph.py`) opens one span per unit it runs (the front end,
+each frozen layer that LayerDrop keeps):
+
+  wavlm.prefix_replay  the unit replayed from its CUDA graph
+  wavlm.prefix_eager   the unit run op by op (the first step of a shape)
+
 To see them beside the kernels, wrap `EmotionTrainer.run_epoch` in
 `device_trace(dir)`: the Chrome trace it writes holds each span as a CPU
 operator on the kernels' clock.  Under Nsight Systems, wrap it in

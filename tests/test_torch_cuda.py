@@ -1005,6 +1005,106 @@ def test_trainer_warm_start_then_step(cuda, tmp_path):
     assert got == want, (got, want, runs)
 
 
+def _skips_in_prefix(seed, steps=3, n_prefix=10, layers=12, p=0.1):
+    """Whether the trainer's LayerDrop draws from `seed` skip a layer of the
+    frozen prefix (1..n-1) in the first `steps` steps (the "layerdrop" host
+    stream takes one draw per layer above 0 and nothing else)."""
+    from multimodalemotionrecognition_torch.ops.stochastic import RngStreams
+
+    g = RngStreams(seed).host("layerdrop")
+    draws = [[float(torch.rand((), generator=g)) for _ in range(1, layers)] for _ in range(steps)]
+    return any(u < p for step in draws for u in step[:n_prefix - 1])
+
+
+def _three_steps(cuda, tmp_path, seed, graphs, dtype, grad_accum):
+    """Three stage-2 steps of the full-width flagship at the benchmark's shapes
+    (batch 16, 48,000 samples), with the frozen prefix's graphs or
+    (graphs=False) without them -> each step's loss, K1 / K3 / K2 launches
+    and layers run per microbatch, Adam's first moment after step 1, the
+    parameters after step 3, the owner."""
+    trainer, state, runs = _flagship_trainer(cuda, dtype, tmp_path, seed=seed,
+                                             grad_accum=grad_accum)
+    if not graphs:
+        state.model.audio_model.wavlm.prefix_graphs = None
+    mask, lrs = trainer.trainable_mask(2), trainer.lr_tree(2, {})
+    counters = (wavlm_attention_sublayer, fused_conv_layer, wavlm_attention_sublayer_backward)
+    out = {"loss": [], "launches": [], "runs": []}
+    for step in range(3):
+        before = [fn.launches for fn in counters]
+        runs.clear()
+        total, *_ = trainer.train_step(state, *_flagship_batch(cuda, 16, seed=step), mask, lrs,
+                                       reset_opt=step == 0)
+        torch.cuda.synchronize()
+        out["loss"].append(total.clone())
+        out["launches"].append([fn.launches - n for fn, n in zip(counters, before)])
+        out["runs"].append([list(r) for r in runs])
+        if step == 0:
+            out["mu"] = {n: m.clone() for n, m in state.opt_state.mu.items()}
+    out["params"] = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    out["graphs"] = trainer.prefix_graphs
+    return out
+
+
+@pytest.mark.parametrize("dtype,grad_accum", [("float32", 1), ("bfloat16", 1), ("float32", 2)])
+def test_graphed_prefix_steps_are_the_eager_steps_bit_for_bit(cuda, tmp_path, dtype, grad_accum):
+    """Three steps replaying the frozen prefix (the first microbatch eager,
+    the next captures and replays, the rest replay) against three with it
+    eager, from one seed whose LayerDrop skips a layer of the prefix: equal
+    losses, Adam's first moment after step 1, parameters after step 3,
+    layers run and K1, K3, K2 launch counts.  The float32 case is the
+    benchmark's; bf16 steps on casts (`functional_call`), accumulation on
+    microbatches of half the batch (one key)."""
+    seed = next(s for s in range(100) if _skips_in_prefix(s, steps=3 * grad_accum))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the video tower's backward, on both sides
+    try:
+        graphed = _three_steps(cuda, tmp_path, seed, True, dtype, grad_accum)
+        eager = _three_steps(cuda, tmp_path, seed, False, dtype, grad_accum)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    units = list(graphed["graphs"]._units.values())
+    assert len(units) == 1 and len(units[0].graphs) == 11  # the front end and layers 0..9
+    assert graphed["runs"] == eager["runs"]
+    prefix_runs = [r for step in eager["runs"] for r in step]
+    assert len(prefix_runs) == 3 * grad_accum
+    assert any(set(range(10)) - set(r) for r in prefix_runs), eager["runs"]
+    assert graphed["launches"] == eager["launches"]
+    assert [r[:2] for r in eager["launches"]] == [
+        [sum(len(r) for r in step), 6 * len(step)] for step in eager["runs"]]
+    for a, b in zip(graphed["loss"], eager["loss"]):
+        assert torch.equal(a, b), (a, b)
+    for group in ("mu", "params"):
+        bad = [n for n in eager[group] if not torch.equal(graphed[group][n], eager[group][n])]
+        assert not bad, (group, bad[:5])
+
+
+def test_a_capture_draws_nothing(cuda, tmp_path, monkeypatch):
+    """The prefix's capture (the second step) leaves every host and device
+    generator where it was before it; the step's replays then advance them
+    as the eager units did."""
+    from multimodalemotionrecognition_torch.train.prefix_graph import PrefixGraphs
+
+    trainer, state, runs = _flagship_trainer(cuda, "float32", tmp_path, seed=3)
+    seen = []
+    original = PrefixGraphs._capture
+
+    def watched(self, *args):
+        seen.append(state.rng.get_state())
+        original(self, *args)
+        torch.cuda.synchronize()
+        seen.append(state.rng.get_state())
+
+    monkeypatch.setattr(PrefixGraphs, "_capture", watched)
+    mask, lrs = trainer.trainable_mask(2), trainer.lr_tree(2, {})
+    for step in range(3):
+        trainer.train_step(state, *_flagship_batch(cuda, 4, seed=step), mask, lrs)
+    assert len(seen) == 2  # one capture, at the second step
+    before, after = seen
+    for side in ("device", "host"):
+        for name, value in before[side].items():
+            assert torch.equal(value, after[side][name]), (side, name)
+
+
 # A 2-layer WavLM with the base model's seven conv layers, at narrow widths.
 SMALL_WAVLM = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=4, intermediate_size=64,
                    conv_dim=(16,) * 7, num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
